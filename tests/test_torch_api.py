@@ -23,8 +23,15 @@ torch.set_num_threads(2)
 ORIGIN = (0.0, 0.8, 1.8)
 
 
-def _pair(h=8, w=8, conf=0):
+def _scene(name):
     tris, tm, mats = testscenes.cornell_like()
+    if name == "cornell_sub4":  # 5,632 triangles, 22 chunks
+        tris, tm = testscenes.subdivide(tris, tm, levels=4)
+    return tris, tm, mats
+
+
+def _pair(h=8, w=8, conf=0, scene="cornell"):
+    tris, tm, mats = _scene(scene)
     js = J.init(0, h, w, conf, tris, tm, mats, cam_origin=ORIGIN)
     ts = T.init(0, h, w, conf, tris, tm, mats, cam_origin=ORIGIN,
                 device="cpu")
@@ -57,9 +64,10 @@ def _assert_states_close(a, b):
                                    atol=1e-7)
 
 
-@pytest.mark.parametrize("conf", [0, 2])
-def test_init_matches_converted_jax_state(conf):
-    js, ts = _pair(conf=conf)
+@pytest.mark.parametrize("conf, scene", [(0, "cornell"), (2, "cornell"),
+                                         (0, "cornell_sub4")])
+def test_init_matches_converted_jax_state(conf, scene):
+    js, ts = _pair(conf=conf, scene=scene)
     _assert_states_close(ts, _conv(js))
 
 
@@ -125,7 +133,9 @@ def test_cycled_config_renders_raise():
     _, ts = _pair()
     ts = T.key(keys.KEYDOWN, keys.SDLK_t, ts)
     assert ts.cam_conf_id == 1 and ts.transmitter_kind == "flash"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match=r"sensor configs 1 and 2.*\(ROADMAP\.md, "
+                             r"Queue 1\)"):
         T.step(ts)
 
 

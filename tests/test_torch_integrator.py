@@ -20,7 +20,17 @@ from tracer_tpu_torch.utils import convert
 
 torch.set_num_threads(2)
 
+
+
+def _cornell_sub4():
+    """subdivide(cornell_like, 4): 5,632 triangles in 22 chunks, 512
+    light triangles."""
+    tris, tm, mats = testscenes.cornell_like()
+    return (*testscenes.subdivide(tris, tm, levels=4), mats)
+
+
 SCENES = {"cornell": (testscenes.cornell_like, (0.0, 0.8, 1.8)),
+          "cornell_sub4": (_cornell_sub4, (0.0, 0.8, 1.8)),
           "prism": (testscenes.prism_scene, (0.0, 0.9, 2.6))}
 
 
@@ -83,16 +93,26 @@ def test_sample_n_frames_matches_pooled(name):
     assert abs(out["rays_traced"] - rays_j) <= 1e-3 * rays_j
 
 
+NOT_PORTED = r"sensor configs 1 and 2.*\(ROADMAP\.md, Queue 1\)"
+
+
 def test_not_ported_paths_raise():
     js, ts = _states("cornell", 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
         tint.render_frames(ts.seed, 0, ts.scene, ts.cam, ts.ambience, 8, 8,
                            "flash", 1, "color")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=NOT_PORTED):
         tint.render_frames(ts.seed, 0, ts.scene, ts.cam, ts.ambience, 8, 8,
                            "none", 1, "distance")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match=r"sample_points_n .*LiDAR point cloud "
+                             r"\(ROADMAP\.md, Queue 1\)"):
         T.sample_points_n(ts, 2)
+    lbvh = J.init(0, 8, 8, 0, *testscenes.cornell_like(),
+                  cam_origin=(0.0, 0.8, 1.8), accel="lbvh")
+    with pytest.raises(NotImplementedError,
+                       match=r"LBVH accel .*\(ROADMAP\.md, Queue 1\)"):
+        convert.state_from_numpy(jax.tree.map(np.asarray, lbvh), "cpu")
 
 
 def test_hue_and_accumulate():

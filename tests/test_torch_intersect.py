@@ -96,12 +96,23 @@ def test_plain_matches_xla(name):
     assert not ht.numpy()[::3].any()  # tmax 0 never hits
 
 
+# variant -> (TRACER_STREAM_COEFFS, MAX_SCHED of the JAX kernels, the
+# port's wrapper options); chunks5 at MAX_SCHED 3 walks g = 2 with a
+# padded superchunk
+VARIANTS = {"resident": ("0", 64, {"stream": False}),
+            "streamed_g2": ("1", 3, {"stream": True, "max_sched": 3})}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_plain_matches_pallas_interpret(name, monkeypatch):
+def test_plain_matches_pallas_interpret(name, variant, monkeypatch):
     # exact divide in the Pallas kernel; its scores are bf16x3 products
     # (~2^-15 of each term, so t carries up to ~1e-3 where n.s cancels):
     # compare away from the lanes within 1e-3 of a validity boundary
+    stream_env, max_sched, kw = VARIANTS[variant]
     monkeypatch.setenv("TRACER_APPROX_RECIP", "0")
+    monkeypatch.setenv("TRACER_STREAM_COEFFS", stream_env)
+    monkeypatch.setattr(pk, "MAX_SCHED", max_sched)
     _, jd, o, d = _case(name)
     td = _dense_t(jd)
     phi_j = jint.ray_features_t(_v3j(o), _v3j(d))
@@ -109,7 +120,7 @@ def test_plain_matches_pallas_interpret(name, monkeypatch):
     np.testing.assert_allclose(phi_t.numpy(), np.asarray(phi_j), rtol=1e-6)
     bt_j, bi_j = pk.closest_hit_pallas(jd.coeffs, phi_j, 1e30, jd.chunk_bounds,
                                        interpret=True)
-    bt, bi = ik.closest_hit(td.coeffs, phi_t, 1e30, td.chunk_bounds)
+    bt, bi = ik.closest_hit(td.coeffs, phi_t, 1e30, td.chunk_bounds, **kw)
     edge, tie = kc.boundary_lanes(td.coeffs, phi_t, 1e30, td.chunk_bounds,
                                   rel=1e-3)
     keep = ~edge.numpy()
@@ -126,7 +137,7 @@ def test_plain_matches_pallas_interpret(name, monkeypatch):
     hp = np.asarray(pk.any_hit_pallas(jd.coeffs, phi_j, jnp.asarray(tmaxes),
                                       jd.chunk_bounds, interpret=True))
     ht = ik.any_hit(td.coeffs, phi_t, torch.as_tensor(tmaxes),
-                    td.chunk_bounds).numpy()
+                    td.chunk_bounds, **kw).numpy()
     edge, _ = kc.boundary_lanes(td.coeffs, phi_t, torch.as_tensor(tmaxes),
                                 td.chunk_bounds, rel=1e-3)
     keep = ~edge.numpy()
@@ -181,13 +192,34 @@ def test_cpu_tensors_run_plain_versions_only():
     ik.reset_counts()
     tint.closest_hit(td, 1e30, _v3t(o), _v3t(d))
     tint.any_hit(td, 4.0, _v3t(o), _v3t(d))
-    assert ik.launches == {"closest_hit": 0, "any_hit": 0}
-    assert ik.plain_calls == {"closest_hit": 1, "any_hit": 1}
+    phi = tint.ray_features_t(_v3t(o), _v3t(d))
+    ik.closest_hit(td.coeffs, phi, 1e30, td.chunk_bounds, stream=True)
+    ik.any_hit(td.coeffs, phi, 4.0, td.chunk_bounds, stream=True)
+    zero = dict.fromkeys(ik.VARIANTS, 0)
+    assert ik.launches == zero
+    assert ik.plain_calls == dict(zero, closest_hit=1, any_hit=1,
+                                  closest_hit_streamed=1, any_hit_streamed=1)
     with pytest.raises(ValueError):
         ik.closest_hit(td.coeffs, torch.zeros((9, 4)), 1.0, td.chunk_bounds)
     with pytest.raises(ValueError):
         ik.any_hit(td.coeffs, torch.zeros((10, 4)), torch.ones(3),
                    td.chunk_bounds)
+
+
+@pytest.mark.parametrize("bad", [
+    {"stream": 1}, {"stream": "auto"}, {"max_sched": 0}, {"max_sched": 65},
+    {"max_sched": 2.0}, {"perm": "bogus"}, {"perm": "on"}])
+def test_bad_walk_options_raise(bad):
+    """stream is None, True or False; 1 <= max_sched <= 64; perm is
+    "auto", "off" or a key name (the JAX _perm_key would take any name
+    as odmorton)."""
+    _, jd, o, d = _case("random300")
+    td = _dense_t(jd)
+    phi = tint.ray_features_t(_v3t(o), _v3t(d))
+    with pytest.raises(ValueError):
+        tint.closest_hit_phi(td, 1e30, phi, **bad)
+    with pytest.raises(ValueError):
+        tint.any_hit_phi(td, 4.0, phi, **bad)
 
 
 @pytest.fixture
@@ -198,8 +230,10 @@ def cuda_device():
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_kernels_match_plain_on_card(name, cuda_device):
+def test_kernels_match_plain_on_card(name, variant, cuda_device):
+    kw = VARIANTS[variant][2]
     _, jd, o, d = _case(name)
     td = _dense_t(jd).to(cuda_device)
     phi = tint.ray_features_t(_v3t(o).to(cuda_device),
@@ -208,12 +242,17 @@ def test_kernels_match_plain_on_card(name, cuda_device):
     tmaxes = torch.as_tensor(
         np.where(np.arange(n) % 3 == 0, 0.0, 4.0).astype(np.float32),
         device=cuda_device)
+    name_c = "closest_hit_streamed" if kw["stream"] else "closest_hit"
+    name_a = "any_hit_streamed" if kw["stream"] else "any_hit"
     for tmax in (torch.full((n,), 1e30, device=cuda_device), tmaxes):
-        bt, bi = ik.closest_hit(td.coeffs, phi, tmax, td.chunk_bounds)
+        before = (ik.launches[name_c], ik.launches[name_a])
+        bt, bi = ik.closest_hit(td.coeffs, phi, tmax, td.chunk_bounds, **kw)
         rt, ri = ik.closest_hit_ref(td.coeffs, phi, tmax, td.chunk_bounds)
-        hk = ik.any_hit(td.coeffs, phi, tmax, td.chunk_bounds)
+        hk = ik.any_hit(td.coeffs, phi, tmax, td.chunk_bounds, **kw)
         hr = ik.any_hit_ref(td.coeffs, phi, tmax, td.chunk_bounds)
         torch.cuda.synchronize()
+        assert (ik.launches[name_c], ik.launches[name_a]) == (
+            before[0] + 1, before[1] + 1)
         edge, tie = kc.boundary_lanes(td.coeffs, phi, tmax, td.chunk_bounds)
         keep = ~edge
         assert torch.equal(torch.isfinite(bt)[keep], torch.isfinite(rt)[keep])

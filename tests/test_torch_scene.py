@@ -39,11 +39,15 @@ def test_build_scene(name):
     np.testing.assert_array_equal(ts.accel.perm.numpy(), js.accel.perm)
     np.testing.assert_allclose(ts.accel.coeffs.numpy(), js.accel.coeffs,
                                rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError,
+                       match=r"LBVH accel .*\(ROADMAP\.md, Queue 1\)"):
         tscene.build_scene(tris, tm, mats, accel="lbvh", device="cpu")
-    big, big_tm = testscenes.subdivide(tris, tm, levels=5)  # > 64 chunks
-    with pytest.raises(NotImplementedError):
-        tscene.build_scene(big, big_tm, mats, device="cpu")
+    # the dense accel takes scenes above 64 chunks (superchunk walk)
+    big, big_tm = testscenes.subdivide(tris, tm, levels=5)
+    tb = tscene.build_scene(big, big_tm, mats, device="cpu")
+    assert tb.accel.chunk_bounds.shape[0] == -(-big.shape[0] // 256) > 64
+    np.testing.assert_array_equal(tb.tri_mat.numpy(),
+                                  big_tm[tb.accel.perm[:big.shape[0]].numpy()])
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))

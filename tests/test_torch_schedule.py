@@ -1,0 +1,199 @@
+"""Port parity: what the intersection kernels walk. The superchunk boxes
+and the per-tile near-to-far chunk schedule of tracer_tpu_torch against
+the JAX package's _superchunk_bounds and _tile_chunk_order; the
+schedule's superset property on a 22-chunk scene, which makes every
+scheduled walk exact; the boundary ray permutation's keys against the
+JAX _perm_key, and permuted queries against unpermuted ones."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import tracer_tpu_torch as T
+from tracer_tpu.ops import intersect as jint
+from tracer_tpu.ops.pallas import intersect_kernel as pk
+from tracer_tpu_torch.ops import intersect as tint
+from tracer_tpu_torch.ops import intersect_kernel as ik
+from tracer_tpu_torch.ops import shapes
+from tracer_tpu_torch.utils import kernel_cases as kc
+from tracer_tpu_torch.utils import testscenes
+
+torch.set_num_threads(2)
+
+TILE = ik.BLOCK
+
+
+def _chunks5():
+    """1,100 random triangles in 5 chunks of 256, 300 random rays and the
+    axis-parallel rays on every chunk's bound planes."""
+    tris, o, d = kc.random_case(1100, 300)
+    jd = jint.build_dense(jnp.asarray(tris))
+    assert jd.chunk_bounds.shape[0] == 5
+    po, pd = kc.on_plane_rays(np.asarray(jd.chunk_bounds))
+    o, d = np.concatenate([o, po]), np.concatenate([d, pd])
+    phi_j = jint.ray_features_t(jnp.asarray(o.T), jnp.asarray(d.T))
+    return jd, phi_j, torch.as_tensor(np.array(phi_j))
+
+
+def _jax_order(phi_j, tmax, sbounds_j):
+    """pk._tile_chunk_order on inputs padded as _pad_inputs pads them."""
+    n = phi_j.shape[1]
+    n_pad = -(-n // TILE) * TILE
+    phi = jnp.pad(phi_j, ((0, 6), (0, n_pad - n)))
+    tmv = jnp.pad(jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (n,)),
+                  (0, n_pad - n))[None, :]
+    order, count = pk._tile_chunk_order(phi, tmv, sbounds_j, n_pad // TILE,
+                                        TILE)
+    return np.asarray(order), np.asarray(count)
+
+
+@pytest.mark.parametrize("g", [2, 3, 5])
+def test_superchunk_bounds_matches_jax(g):
+    jd, _, _ = _chunks5()
+    got = ik.superchunk_bounds(torch.as_tensor(np.array(jd.chunk_bounds)), g)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(pk._superchunk_bounds(jd.chunk_bounds, g)))
+
+
+@pytest.mark.parametrize("tmax_kind", ["scalar", "per_lane"])
+@pytest.mark.parametrize("max_sched", [64, 3])
+def test_tile_chunk_order_matches_jax(max_sched, tmax_kind):
+    """g = 1 (5 chunks) and g = 2 (MAX_SCHED 3: 3 superchunks, the last
+    one padded); count exactly, order exactly or where keys tie."""
+    jd, phi_j, phi = _chunks5()
+    n = phi.shape[1]
+    tmax = (np.float32(1e30) if tmax_kind == "scalar" else
+            np.where(np.arange(n) % 3 == 0, 0.0,
+                     np.where(np.arange(n) % 3 == 1, 4.0, 1e30)
+                     ).astype(np.float32))
+    cb = torch.as_tensor(np.array(jd.chunk_bounds))
+    g, sb, order, count = ik.walk_schedule(phi, torch.as_tensor(tmax), cb,
+                                           max_sched)
+    assert g == (1 if max_sched == 64 else 2)
+    sb_j = (jd.chunk_bounds if g == 1
+            else pk._superchunk_bounds(jd.chunk_bounds, g))
+    np.testing.assert_array_equal(sb.numpy(), np.asarray(sb_j))
+    order_j, count_j = _jax_order(phi_j, tmax, sb_j)
+    np.testing.assert_array_equal(count.numpy(), count_j)
+    # the keys themselves, to excuse reorderings among equal entries
+    n_pad = order.shape[0] * TILE
+    keys = ik._tile_entry(
+        torch.nn.functional.pad(phi[:6], (0, n_pad - n)),
+        torch.nn.functional.pad(torch.as_tensor(tmax).expand(n),
+                                (0, n_pad - n)),
+        sb, order.shape[0], TILE).T.numpy()
+    ot = order.numpy()
+    for tile in range(ot.shape[0]):
+        c = count_j[tile]
+        kt = keys[tile, ot[tile, :c]]
+        kj = keys[tile, order_j[tile, :c]]
+        np.testing.assert_allclose(kt, kj, rtol=1e-6)
+        assert set(ot[tile, :c]) == set(order_j[tile, :c])
+
+
+def test_schedule_axis_parallel_ray_on_bound_plane():
+    """An axis-parallel ray whose origin sits exactly on a chunk's bound
+    plane (0 * inf = NaN in the slab test) keeps that chunk in its
+    schedule (tests/test_pallas_kernel.py, same case)."""
+    bounds = torch.tensor([[0.0, -1.0, -5.0, 1.0, 1.0, 5.0, 0.0, 0.0]])
+    o = torch.tensor([[0.0], [0.0], [4.0]])
+    d = torch.tensor([[0.0], [0.0], [-1.0]])
+    phi = tint.ray_features_t(o, d)
+    order, count = ik.tile_chunk_order(phi, 1e30, bounds)
+    assert count.tolist() == [1] and order.tolist() == [[0]]
+    _, count_j = _jax_order(jnp.asarray(phi.numpy()), 1e30,
+                            jnp.asarray(bounds.numpy()))
+    assert count_j.tolist() == [1]
+
+
+def _sub4_state(size):
+    tris, tm, mats = testscenes.cornell_like()
+    tris, tm = testscenes.subdivide(tris, tm, levels=4)
+    return T.init(0, size, size, 0, tris, tm, mats, cam_origin=(0.0, 0.8, 1.8),
+                  device="cpu")
+
+
+@pytest.mark.parametrize("max_sched", [64, 8])
+def test_schedule_holds_every_winner(max_sched):
+    """Superset property on subdivide(cornell_like, 4) (5,632 triangles,
+    22 chunks; g = 1, and g = 3 at max_sched 8): for every lane of the
+    camera and first-bounce rays, the chunk that holds the plain
+    version's winner (its superchunk at g > 1) is in the lane's tile
+    schedule order[tile, :count[tile]]."""
+    s = _sub4_state(32)
+    dense = s.scene.accel
+    cb = dense.chunk_bounds
+    assert cb.shape[0] == 22
+    chunk_t = dense.coeffs.shape[1] // cb.shape[0]
+    (o, d), (bo, bd), _ = kc.render_rays(s)
+    for camera, (oo, dd) in ((True, (o, d)), (False, (bo, bd))):
+        phi = tint.ray_features_t(oo, dd)
+        bt, bi = ik.closest_hit_ref(dense.coeffs, phi, shapes.F32_HIGHEST, cb)
+        g, _, order, count = ik.walk_schedule(phi, shapes.F32_HIGHEST, cb,
+                                              max_sched)
+        assert g == (1 if max_sched == 64 else 3)
+        hit = torch.isfinite(bt)
+        assert hit.float().mean() > 0.5
+        lanes = torch.nonzero(hit)[:, 0]
+        tile = lanes // TILE
+        want = (bi[lanes].long() // chunk_t) // g
+        ranks = torch.arange(order.shape[1])[None, :]
+        listed = (order[tile].long() == want[:, None]) & (
+            ranks < count[tile][:, None])
+        assert bool(listed.any(dim=1).all())
+        if camera:  # coherent rays: some tile leaves (super)chunks out
+            assert int(count.min()) < order.shape[1]
+
+
+@pytest.mark.parametrize("mode", ["oct", "dmorton", "odmorton"])
+def test_perm_key_matches_jax(mode):
+    jd, phi_j, phi = _chunks5()
+    want = np.asarray(jint._perm_key(phi_j, jd.chunk_bounds, mode))
+    got = tint.perm_key(phi, torch.as_tensor(np.array(jd.chunk_bounds)), mode)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_perm_key_rejects_unknown_mode():
+    _, _, phi = _chunks5()
+    with pytest.raises(ValueError):
+        tint.perm_key(phi, torch.zeros((1, 8)), "morton")
+
+
+@pytest.mark.parametrize("mode", ["oct", "dmorton", "odmorton"])
+def test_permuted_queries_match_unpermuted(mode):
+    """Sorted lanes give every lane the result it gets unsorted: hits and
+    best t equal, best_i equal outside ties; per-lane tmax with dead
+    lanes for the shadow query."""
+    s = _sub4_state(24)
+    dense = s.scene.accel
+    (o, d), (bo, bd), (so, sd, st) = kc.render_rays(s)
+    phi = tint.ray_features_t(torch.cat([o, bo], 1), torch.cat([d, bd], 1))
+    bt0, bi0 = tint.closest_hit_phi(dense, shapes.F32_HIGHEST, phi,
+                                    perm="off")
+    bt1, bi1 = tint.closest_hit_phi(dense, shapes.F32_HIGHEST, phi,
+                                    perm=mode)
+    assert torch.equal(bt0, bt1)
+    _, tie = kc.boundary_lanes(dense.coeffs, phi, shapes.F32_HIGHEST,
+                               dense.chunk_bounds)
+    assert torch.equal(bi0[~tie], bi1[~tie])
+    phi_s = tint.ray_features_t(so, sd)
+    assert bool((st == 0).any())
+    h0 = tint.any_hit_phi(dense, st, phi_s, perm="off")
+    h1 = tint.any_hit_phi(dense, st, phi_s, perm=mode)
+    assert torch.equal(h0, h1)
+    assert not bool(h1[st == 0].any())
+
+
+def test_perm_auto_sorts_only_on_the_card():
+    """perm="auto" resolves to odmorton at the JAX package's thresholds on
+    a CUDA device and never on the CPU; "off" never sorts."""
+    assert tint.resolve_perm("auto", 22, "cuda") == "odmorton"
+    assert tint.resolve_perm("auto", 15, "cuda") is None
+    assert tint.resolve_perm("auto", 2, "cuda", any_hit=True) == "odmorton"
+    assert tint.resolve_perm("auto", 1, "cuda", any_hit=True) is None
+    assert tint.resolve_perm("auto", 5000, "cpu") is None
+    assert tint.resolve_perm("auto", 5000, "cpu", any_hit=True) is None
+    assert tint.resolve_perm("off", 5000, "cuda") is None
+    assert tint.resolve_perm("dmorton", 1, "cpu") == "dmorton"

@@ -13,6 +13,7 @@ from tracer_tpu.engine import keys as jkeys
 from tracer_tpu.utils import objloader as jobj
 from tracer_tpu.utils import testscenes as jscenes
 from tracer_tpu_torch.engine import keys as tkeys
+from tracer_tpu_torch.utils import kernel_cases as tkc
 from tracer_tpu_torch.utils import objloader as tobj
 from tracer_tpu_torch.utils import testscenes as tscenes
 
@@ -59,6 +60,27 @@ def test_cornell_like_matches_jax():
     for t, j in zip(tscenes.cornell_like(), jscenes.cornell_like()):
         assert t.dtype == j.dtype
         np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2])
+def test_subdivide_matches_jax(levels):
+    tris, tm, _ = jscenes.cornell_like()
+    got = tscenes.subdivide(tris, tm, levels=levels)
+    want = jscenes.subdivide(tris, tm, levels=levels)
+    assert got[0].shape == (22 * 4 ** levels, 3, 3)
+    for t, j in zip(got, want):
+        assert t.dtype == j.dtype
+        np.testing.assert_array_equal(t, j)
+
+
+def test_bigscene_rays_match_bigscene_check():
+    from benchmarks.bigscene_check import make_rays
+    tris, _ = jscenes.subdivide(*jscenes.cornell_like()[:2], levels=2)
+    o, d = tkc.bigscene_rays(tris, 1000, 3)
+    jo, jd = make_rays(tris, 1000, np.random.default_rng(3))
+    assert o.dtype == d.dtype == np.float32 and o.shape == d.shape == (1000, 3)
+    np.testing.assert_array_equal(o, np.asarray(jo).T)
+    np.testing.assert_array_equal(d, np.asarray(jd).T)
 
 
 @pytest.mark.parametrize("name", sorted(OBJS))

@@ -188,5 +188,5 @@ def sample_n_frames(s: EngineState, n: int) -> torch.Tensor:
 
 def sample_points_n(s: EngineState, samples_per_pixel: int):
     raise NotImplementedError(
-        "sample_points_n is not ported yet (ROADMAP.md, Queue 1 item 10: "
-        "the LiDAR point-cloud path)")
+        "sample_points_n is not ported yet: sensor configs 1 and 2 and the "
+        "LiDAR point cloud (ROADMAP.md, Queue 1)")

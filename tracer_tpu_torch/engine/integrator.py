@@ -32,8 +32,9 @@ from tracer_tpu_torch.ops import spectrum as spec
 
 PATH_LEN = 16  # max path length (integrator.fut:23)
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md, Queue 1 item 10: sensor "
-               "configs 1 and 2, the transmitter fan and distance mode)")
+_NOT_PORTED = ("is not ported yet: sensor configs 1 and 2, the transmitter "
+               "fan, distance mode and the LiDAR point cloud (ROADMAP.md, "
+               "Queue 1)")
 
 
 class PathRecords(NamedTuple):

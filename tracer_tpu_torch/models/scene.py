@@ -2,8 +2,9 @@
 intersector (port of tracer_tpu/models/scene.py).
 
 The scene is an nn.Module whose tensors are registered buffers, so
-`.to(device)` moves it whole. Only the dense accel is ported; the LBVH
-(and "auto" above DENSE_THRESHOLD triangles) raises.
+`.to(device)` moves it whole. Only the dense accel is ported: it takes
+every scene up to DENSE_THRESHOLD triangles; the LBVH (and "auto" above
+that) raises.
 """
 
 from __future__ import annotations
@@ -18,9 +19,6 @@ from tracer_tpu_torch.models import lights as lights_mod
 from tracer_tpu_torch.ops import intersect, materials
 
 DENSE_THRESHOLD = 2_500_000
-# Above this many chunks the JAX package walks superchunks (MAX_SCHED) and,
-# larger still, streams coefficients; neither is ported yet.
-MAX_CHUNKS = 64
 
 
 class Scene(nn.Module):
@@ -84,17 +82,11 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
         mat_rows_np = np.zeros((1, 28), np.float32)
     if accel == "lbvh" or (accel == "auto" and t > DENSE_THRESHOLD):
         raise NotImplementedError(
-            "the LBVH accel is not ported yet (ROADMAP.md, Queue 1 item 13); "
+            "the LBVH accel is not ported yet (ROADMAP.md, Queue 1); "
             f"this scene has {t} triangles, the dense accel takes up to "
             f"{DENSE_THRESHOLD}")
     if accel not in ("dense", "auto"):
         raise ValueError(f"unknown accel {accel!r}")
-    n_chunks = -(-max(t, 1) // intersect.default_pad(t))
-    if n_chunks > MAX_CHUNKS:
-        raise NotImplementedError(
-            f"this scene needs {n_chunks} chunks; scenes above {MAX_CHUNKS} "
-            "(the superchunk walk and streaming) are not ported yet "
-            "(ROADMAP.md, Queue 2)")
     tris = torch.as_tensor(tris_np, device=device)
     acc = intersect.build_dense(
         tris, aux=torch.as_tensor(mat_ix_padded[:t].astype(np.float32),

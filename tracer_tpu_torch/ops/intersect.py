@@ -9,8 +9,19 @@ the kernel wrappers of ops/intersect_kernel.py (the CUDA kernels on the
 card, their plain versions on the CPU), and closest_hit recomputes the
 winner's t, position and normal exactly from its index.
 
-The port is exact f32 everywhere: the TPU package's bf16 word packing,
-ray permutation and Pallas switch are not ported.
+Boundary ray permutation (tracer_tpu/ops/intersect.py:262-406): at the
+query boundary only, the lanes may be sorted by a coherence key
+(perm_key) so that each CUDA block's rays are alike and its chunk
+schedule culls; the kernel runs on the sorted lanes and its results are
+scattered back to the caller's order. Lane state never moves. perm="auto"
+sorts on a CUDA tensor at PERM_AUTO_MIN_CHUNKS (closest) or
+PERM_ANY_AUTO_MIN_CHUNKS (any hit) chunks and never on the CPU, as the
+TPU package sorts only for its Pallas kernels; "off" never sorts; a key
+name always does. Results do not depend on the lane order, except which
+index wins an exact-t tie across chunks.
+
+The port is exact f32 everywhere: the TPU package's bf16 word packing
+and its Pallas switch are not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +40,10 @@ PAD_LARGE = 256
 PAD_LARGE_MIN_TRIS = 512
 # tmax slack of the exact re-test of the winner (intersect.py:481)
 REINTERSECT_SLACK = 1e-6
+# perm="auto" thresholds, in chunks of the scene (intersect.py:291-292)
+PERM_AUTO_MIN_CHUNKS = 16
+PERM_ANY_AUTO_MIN_CHUNKS = 2
+PERM_KEYS = ("oct", "dmorton", "odmorton")
 
 
 class DenseTris(nn.Module):
@@ -137,15 +152,136 @@ def _reintersect(dense: DenseTris, best_i, origin, d, tmax):
     return ok, t, pos, nrm, rows_t[9]
 
 
-def closest_hit(dense: DenseTris, tmax, origin, d):
-    """Closest-hit query of V3 rays (3,N) against all triangles.
+def _spread3(v, bits: int):
+    r = torch.zeros_like(v)
+    for i in range(bits):
+        r = r | (((v >> i) & 1) << (3 * i))
+    return r
+
+
+def _quant_i(v, lo, hi, bits: int):
+    """(v - lo) / (hi - lo) on 2**bits cells, in f32 as the TPU package's
+    _quant_i computes it, truncated toward zero and clipped. The clamp
+    before the conversion gives the same cell for every finite v and
+    keeps out-of-range values from the undefined float-to-int cast."""
+    scale = (torch.tensor(float(1 << bits), dtype=torch.float32)
+             / torch.clamp_min(hi - lo, 1e-30))
+    q = (v - lo) * scale
+    return torch.clamp(q, 0.0, float((1 << bits) - 1)).to(torch.int32)
+
+
+def _morton3(x, y, z, lo, hi, bits: int):
+    return ((_spread3(_quant_i(x, lo[0], hi[0], bits), bits) << 2)
+            | (_spread3(_quant_i(y, lo[1], hi[1], bits), bits) << 1)
+            | _spread3(_quant_i(z, lo[2], hi[2], bits), bits))
+
+
+def perm_key(phi, chunk_bounds, mode: str):
+    """Coherence sort key (N,) int32 of the ray features (10, N), bit for
+    bit tracer_tpu's _perm_key:
+      oct       3-bit direction octant
+      dmorton   30-bit morton code of the direction on [-1, 1]^3
+      odmorton  15-bit morton code of the origin on the scene's box (the
+                union of the non-empty chunk boxes) over a 15-bit one of
+                the direction.
+    Unknown modes raise ValueError."""
+    if mode not in PERM_KEYS:
+        raise ValueError(f"unknown permutation key {mode!r}; expected one "
+                         f"of {PERM_KEYS}")
+    d0, o0 = phi[0:3], phi[3:6]
+    if mode == "oct":
+        return ((d0[0] >= 0).to(torch.int32) * 4
+                + (d0[1] >= 0).to(torch.int32) * 2
+                + (d0[2] >= 0).to(torch.int32))
+    unit_lo = torch.full((3,), -1.0, device=phi.device)
+    unit_hi = torch.full((3,), 1.0, device=phi.device)
+    if mode == "dmorton":
+        return _morton3(d0[0], d0[1], d0[2], unit_lo, unit_hi, 10)
+    finite = (chunk_bounds[:, 0] <= chunk_bounds[:, 3])[:, None]
+    lo = torch.where(finite, chunk_bounds[:, 0:3], float("inf")).amin(dim=0)
+    hi = torch.where(finite, chunk_bounds[:, 3:6], -float("inf")).amax(dim=0)
+    om = _morton3(o0[0], o0[1], o0[2], lo, hi, 5)
+    dm = _morton3(d0[0], d0[1], d0[2], unit_lo, unit_hi, 5)
+    return (om << 15) | dm
+
+
+def resolve_perm(perm: str, n_chunks: int, device, any_hit: bool = False):
+    """The key name a query sorts by, or None. perm: "auto", "off" or a
+    key of PERM_KEYS; anything else raises ValueError."""
+    if perm == "off":
+        return None
+    if perm == "auto":
+        need = PERM_ANY_AUTO_MIN_CHUNKS if any_hit else PERM_AUTO_MIN_CHUNKS
+        on = torch.device(device).type == "cuda" and n_chunks >= need
+        return "odmorton" if on else None
+    if perm not in PERM_KEYS:
+        raise ValueError(f"perm must be 'auto', 'off' or one of {PERM_KEYS}, "
+                         f"got {perm!r}")
+    return perm
+
+
+def lane_order(phi, tmax, chunk_bounds, mode: str, dead_first: bool = False):
+    """The lane permutation of a sorted query: indices (N,) that sort the
+    lanes by perm_key with a stable sort; dead_first keys the lanes with
+    tmax <= 0 as -1, so they come first."""
+    key = perm_key(phi, chunk_bounds, mode)
+    if dead_first:
+        key = torch.where(tmax > 0.0, key, -1)
+    return torch.sort(key, stable=True).indices
+
+
+def closest_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
+                    stream=None, max_sched: int = ik.MAX_SCHED):
+    """The closest-hit kernel wrapper on ray features phi (10, N), run on
+    lanes sorted by the perm key when `perm` resolves to one; (best_t,
+    best_i) come back in the caller's lane order. stream and max_sched go
+    to ik.closest_hit."""
+    mode = resolve_perm(perm, dense.chunk_bounds.shape[0], phi.device)
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
+    kw = {"stream": stream, "max_sched": max_sched}
+    if mode is None:
+        return ik.closest_hit(dense.coeffs, phi, tmax, dense.chunk_bounds,
+                              **kw)
+    idx = lane_order(phi, tmax, dense.chunk_bounds, mode)
+    bt_s, bi_s = ik.closest_hit(dense.coeffs, phi[:, idx],
+                                tmax[idx] if tmax.dim() else tmax,
+                                dense.chunk_bounds, **kw)
+    best_t, best_i = torch.empty_like(bt_s), torch.empty_like(bi_s)
+    best_t[idx] = bt_s
+    best_i[idx] = bi_s
+    return best_t, best_i
+
+
+def any_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
+                stream=None, max_sched: int = ik.MAX_SCHED):
+    """The any-hit kernel wrapper on ray features phi (10, N), run on
+    sorted lanes as closest_hit_phi does; dead lanes (tmax <= 0) key -1,
+    so they sort first and fill whole blocks that schedule nothing."""
+    mode = resolve_perm(perm, dense.chunk_bounds.shape[0], phi.device,
+                        any_hit=True)
+    n = phi.shape[1]
+    tmax = torch.as_tensor(tmax, dtype=torch.float32,
+                           device=phi.device).expand(n)
+    kw = {"stream": stream, "max_sched": max_sched}
+    if mode is None:
+        return ik.any_hit(dense.coeffs, phi, tmax, dense.chunk_bounds, **kw)
+    idx = lane_order(phi, tmax, dense.chunk_bounds, mode, dead_first=True)
+    hit_s = ik.any_hit(dense.coeffs, phi[:, idx], tmax[idx],
+                       dense.chunk_bounds, **kw)
+    hit = torch.empty_like(hit_s)
+    hit[idx] = hit_s
+    return hit
+
+
+def closest_hit(dense: DenseTris, tmax, origin, d, *, perm: str = "auto"):
+    """Closest-hit query of V3 rays (3,N) against all triangles; perm as
+    for closest_hit_phi.
 
     Returns (ok (N,), t (N,), tri_idx (N,) int32 in storage order, -1 on
     a miss, pos (3,N), normal (3,N), aux (N,) f32, 0 on a miss)."""
     phi = ray_features_t(origin, d)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
-    best_t, best_i = ik.closest_hit(dense.coeffs, phi, tmax,
-                                    dense.chunk_bounds)
+    best_t, best_i = closest_hit_phi(dense, tmax, phi, perm=perm)
     ok = torch.isfinite(best_t)
     best_i = torch.where(ok, best_i, 0)
     ok2, t, pos, normal, aux = _reintersect(
@@ -156,10 +292,10 @@ def closest_hit(dense: DenseTris, tmax, origin, d):
             torch.where(ok, aux, 0.0))
 
 
-def any_hit(dense: DenseTris, tmax, origin, d):
-    """Shadow-ray query: True where any triangle is hit before tmax."""
-    phi = ray_features_t(origin, d)
-    return ik.any_hit(dense.coeffs, phi, tmax, dense.chunk_bounds)
+def any_hit(dense: DenseTris, tmax, origin, d, *, perm: str = "auto"):
+    """Shadow-ray query: True where any triangle is hit before tmax; perm
+    as for any_hit_phi."""
+    return any_hit_phi(dense, tmax, ray_features_t(origin, d), perm=perm)
 
 
 def closest_hit_bruteforce(tris, tmax, origin, d):

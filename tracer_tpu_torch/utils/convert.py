@@ -28,8 +28,8 @@ def scene_from_numpy(sc, device) -> scene_mod.Scene:
     acc = sc.accel
     if not hasattr(acc, "coeffs"):
         raise NotImplementedError(
-            "only the dense accel is ported (ROADMAP.md, Queue 1 item 13: "
-            "LBVH)")
+            "only the dense accel is ported; the LBVH accel is not ported "
+            "yet (ROADMAP.md, Queue 1)")
     accel = intersect.DenseTris(
         coeffs=_t(acc.coeffs, device), tris=_t(acc.tris, device),
         perm=_t(acc.perm, device, torch.int32),

@@ -1,10 +1,12 @@
-"""Procedural test scenes, numpy only (the Cornell box of
-tracer_tpu/utils/testscenes.py, which the port's smoke run renders when
-no asset file is given).
+"""Procedural test scenes, numpy only (the Cornell box and the midpoint
+subdivision of tracer_tpu/utils/testscenes.py, which the port's smoke run
+renders when no asset file is given).
 
 cornell_like mimics the classic Cornell box layout (coloured side walls,
 white box interior, ceiling area light, one block) with the loader's
-28-float material rows.
+28-float material rows. subdivide turns it into a big scene with the
+same surfaces: subdivide(*cornell_like()[:2], levels=6) has 22 * 4**6 =
+90,112 triangles.
 """
 
 from __future__ import annotations
@@ -65,3 +67,21 @@ def cornell_like():
              [0.23, 1.98, -0.22], [0.23, 1.98, 0.16]), 4)
 
     return (np.asarray(tris, np.float32), np.asarray(tm, np.uint32), mats)
+
+
+def subdivide(tris, tri_mats, levels: int = 1):
+    """Midpoint 1->4 triangle subdivision, `levels` times: the same
+    surface with 4**levels times the triangles, each child keeping its
+    parent's material. Returns (tris (T, 3, 3) f32, tri_mats (T,))."""
+    tris = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+    tm = np.asarray(tri_mats)
+    for _ in range(levels):
+        a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+        ab, bc, ca = (a + b) * 0.5, (b + c) * 0.5, (c + a) * 0.5
+        tris = np.concatenate([
+            np.stack([a, ab, ca], axis=1),
+            np.stack([ab, b, bc], axis=1),
+            np.stack([ca, bc, c], axis=1),
+            np.stack([ab, bc, ca], axis=1)], axis=0)
+        tm = np.concatenate([tm, tm, tm, tm], axis=0)
+    return tris, tm
