@@ -7,7 +7,8 @@ Runs from the root of a checkout. Phases, each printed on its own line;
 any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc-builds csrc/intersect.cu from the checkout
+  2. build    nvcc-builds csrc/intersect.cu and csrc/recip.cu from the
+              checkout into one library
   3. kernels  the hand kernels against their plain PyTorch versions on
               the card: Cornell camera and first-bounce rays at 512x512,
               a 1,100-triangle 5-chunk random scene with on-plane
@@ -37,17 +38,48 @@ any failure exits non-zero:
               whose image must pass the Cornell checks and lie within 3%
               of the Cornell image's mean; the breakdown of one 1-spp
               cornell-sub6 render and its chunk schedule statistics; each
-              of the four kernels timed at cornell-sub6's shapes
-  7. result   a JSON line of the kernels, then the last line
+              of the four kernels timed at cornell-sub6's shapes, beside
+              its bound (bytes or operations, whichever is larger)
+  7. recip    K5: the approximate-reciprocal probe
+              (utils/measure_recip.measure) at n = 2^20 on the card, its
+              JSON line, max_rel within APPROX_RECIP_REL = 2^-8 and within
+              RCP_APPROX_REL = 2^-22 (rcp.approx's documented 1 ulp); K5,
+              torch.reciprocal and the plain version timed at 2^20 and
+              2^26 beside the bandwidth bound
+  8. lidar    the LiDAR capture of the reference's demo-save: init(conf
+              2) at 640x480, sample_points_n(s, 100), timed, with
+              rays_traced taken from the same run; the points' window,
+              miss encoding and return share, the nonce, K1/K3 launched
+              and no plain version; K1 and K3 against their plain versions
+              on every query of one 1-spp frame of the capture (307,200
+              closest-hit rays and 614,400 shadow lanes per bounce, most
+              of them aimed at the transmitter fan); a 32x32 8-spp capture
+              against the CPU; 3 distance-mode steps; the flash (conf 1)
+              against conf 0 on the box with its emission killed; the
+              breakdown of one 1-spp LiDAR frame
+  9. result   a JSON line of the kernels, then the last line
               {"ok": true, "device": {...}}
 
 Tolerances (f32 sums in another order, FMA contraction in the kernel):
 hit masks equal except on lanes whose u, v, 1-u-v, t or t-tmax lies
 within 1e-5 of a validity boundary (computed in float64); best_t within
 rtol 1e-5 where both hit; best_i equal except where the two smallest
-candidate t's lie within 1e-5 of each other.
+candidate t's lie within 1e-5 of each other. K5 within RCP_APPROX_REL
+(2^-22) of the plain version's 1/x, relative. The card's LiDAR capture against the CPU's:
+distances within rtol 1e-4 on >= 99% of pixels (a Russian-roulette or
+frustum-edge flip moves a pixel), return shares within 0.02.
+
+Bounds (bound_ms): the larger of the bytes a kernel must move (each
+input read once, each output written once) over 3.35 TB/s and the f32
+operations its inputs need over 67 TFLOP/s (the H100 SXM's published
+rates at 700 W; the card's power limit is printed beside them). For
+K1-K4 the operations are the (lane, triangle) tests the answer needs
+(kernel_cases.needed_tests), 85 flops each: for a closest query every
+chunk a ray enters up to its best t; for an any-hit query one chunk per
+occluded lane and every chunk an unoccluded lane enters before tmax.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -73,6 +105,12 @@ REPLACES = {
     "any_hit": "tracer_tpu/ops/pallas/intersect_kernel.py:497",
     "any_hit_streamed": "tracer_tpu/ops/pallas/intersect_kernel.py:704",
 }
+# Published H100 SXM rates (NVIDIA's data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+RECIP_SIZES = (1 << 20, 1 << 26)   # K5: the probe's n, and past the L2
+# the reference's demo-save capture (frontends/save_demo.py defaults)
+LIDAR_W, LIDAR_H, LIDAR_SPP = 640, 480, 100
 
 
 def log(phase, msg):
@@ -89,6 +127,24 @@ def card_line():
 
 def variant(query, stream):
     return f"{query}_hit_streamed" if stream else f"{query}_hit"
+
+
+@contextlib.contextmanager
+def tap(module, name, calls):
+    """Within the block, each call of module.name also appends (args,
+    kwargs, result) to calls."""
+    fn = getattr(module, name)
+
+    def tapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, tapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -135,18 +191,20 @@ def compare_any(phase, label, hk, hr, edge, exact=None):
     return float((hk[~edge].float() - hr[~edge].float()).abs().max())
 
 
-def check_closest(ik, label, coeffs, phi, tmax, bounds, exact=None, **kw):
+def check_closest(ik, label, coeffs, phi, tmax, bounds, exact=None,
+                  phase="kernels", **kw):
     from tracer_tpu_torch.utils import kernel_cases as kc
     return compare_closest(
-        "kernels", label, ik.closest_hit(coeffs, phi, tmax, bounds, **kw),
+        phase, label, ik.closest_hit(coeffs, phi, tmax, bounds, **kw),
         ik.closest_hit_ref(coeffs, phi, tmax, bounds),
         kc.boundary_lanes(coeffs, phi, tmax, bounds, rel=REL), exact)
 
 
-def check_any(ik, label, coeffs, phi, tmax, bounds, exact=None, **kw):
+def check_any(ik, label, coeffs, phi, tmax, bounds, exact=None,
+              phase="kernels", **kw):
     from tracer_tpu_torch.utils import kernel_cases as kc
     edge, _ = kc.boundary_lanes(coeffs, phi, tmax, bounds, rel=REL)
-    return compare_any("kernels", label,
+    return compare_any(phase, label,
                        ik.any_hit(coeffs, phi, tmax, bounds, **kw),
                        ik.any_hit_ref(coeffs, phi, tmax, bounds), edge, exact)
 
@@ -280,15 +338,11 @@ def phase_kernels(ik, intersect, s, device, errs):
 # main path
 
 def load_cornell():
-    """CornellBox-Original.obj from $TRACER_ASSETS when it is there, else
-    the procedural Cornell box (as bench.py chooses)."""
-    assets = os.environ.get("TRACER_ASSETS")
-    path = os.path.join(assets, "CornellBox-Original.obj") if assets else None
-    if path and os.path.exists(path):
-        from tracer_tpu_torch.utils.objloader import load_obj
-        return load_obj(path), "CornellBox-Original.obj"
-    from tracer_tpu_torch.utils.testscenes import cornell_like
-    return cornell_like(), "procedural cornell_like"
+    """The capture frontend's scene: CornellBox-Original.obj from
+    $TRACER_ASSETS when it is there, else the procedural Cornell box (as
+    bench.py chooses). Returns ((tris, tri_mats, mats), name)."""
+    from tracer_tpu_torch.frontends.save_demo import load_scene
+    return load_scene(None)
 
 
 def cornell_sub(levels):
@@ -587,10 +641,54 @@ def schedule_stats(ik, intersect, s):
                 f"{int((c == 0).sum())}")
 
 
+def bound(bytes_moved, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    f32 operations over the f32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def query_bound(ik, query, label, co, cb, phi, tmax, card):
+    """The bound of one closest- or any-hit call on these inputs: coeffs,
+    chunk bounds, features and tmax read once, the outputs (8 B or 1 B a
+    lane) written once; operations: the tests the kernel's own answer
+    needs (kernel_cases.needed_tests), 85 flops each."""
+    import torch
+    from tracer_tpu_torch.utils import kernel_cases as kc
+    n = phi.shape[1]
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
+    chunk_t = co.shape[1] // cb.shape[0]
+    if query == "closest":
+        bt, _ = ik.closest_hit(co, phi, tmax, cb)
+        near = torch.where(torch.isfinite(bt), bt, tmax.expand(n))
+        tests, out_bytes = kc.needed_tests(phi, near, cb, chunk_t), 8
+        what = "chunks entered up to the best t"
+    else:
+        occ = ik.any_hit(co, phi, tmax, cb)
+        tests = kc.needed_tests(phi, tmax, cb, chunk_t, occluded=occ)
+        out_bytes = 1
+        what = (f"one chunk for each of {int(occ.sum())} occluded lanes, "
+                f"chunks entered before tmax for the rest")
+    flops = tests * kc.FLOPS_PER_TEST
+    moved = 4 * (co.numel() + cb.numel() + phi.numel() + tmax.numel()) \
+        + out_bytes * n
+    ms, by = bound(moved, flops)
+    log("bigscene", f"bound {label}: {moved / 1e6:.2f} MB moved "
+        f"({1e3 * moved / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s), {tests} "
+        f"needed tests ({what}) = {tests / n:.1f} per lane = "
+        f"{flops / 1e9:.2f} GFLOP ({1e3 * flops / F32_FLOPS_PER_S:.4f} ms at "
+        f"67 TFLOP/s f32): {ms:.4f} ms, bound by {by} (published rates at "
+        f"700 W; card {card})")
+    return ms, by
+
+
 def phase_big_timing(ik, intersect, s, card):
     """(5) each of the four kernels on cornell-sub6's first-bounce rays
     (closest) and 2N shadow lanes (any), on the lanes as the main path
-    orders them (perm="auto": odmorton), beside the plain version."""
+    orders them (perm="auto": odmorton), beside the plain version and the
+    bound on the same inputs."""
     from tracer_tpu_torch.ops import shapes
     from tracer_tpu_torch.utils import kernel_cases as kc
     dense = s.scene.accel
@@ -607,24 +705,33 @@ def phase_big_timing(ik, intersect, s, card):
                                calls=1, rounds=3),
         "any": ms_per_call(lambda: ik.any_hit_ref(co, phi_s, st, cb),
                            calls=1, rounds=3)}
+    bounds = {
+        "closest": query_bound(ik, "closest", "closest (first-bounce rays)",
+                               co, cb, phi_b, hi, card),
+        "any": query_bound(ik, "any", "any hit (2N shadow lanes)", co, cb,
+                           phi_s, st, card)}
+    shapes_of = {
+        "closest": f"{phi_b.shape[1]} first-bounce rays of cornell-sub6, "
+                   f"odmorton order",
+        "any": f"{phi_s.shape[1]} shadow lanes (2N) of cornell-sub6, "
+               f"odmorton order, dead lanes first"}
     times = {}
     for stream in (False, True):
-        times[variant("closest", stream)] = (
-            ms_per_call(lambda: ik.closest_hit(co, phi_b, hi, cb,
-                                               stream=stream)),
-            plain["closest"],
-            f"{phi_b.shape[1]} first-bounce rays of cornell-sub6, odmorton "
-            f"order")
-        times[variant("any", stream)] = (
-            ms_per_call(lambda: ik.any_hit(co, phi_s, st, cb, stream=stream)),
-            plain["any"],
-            f"{phi_s.shape[1]} shadow lanes (2N) of cornell-sub6, odmorton "
-            f"order, dead lanes first")
-    for k, (ms, pms, shape) in times.items():
-        log("bigscene", f"time {k}: kernel {ms:.4f} ms (median of "
+        for query, call in (
+                ("closest", lambda: ik.closest_hit(co, phi_b, hi, cb,
+                                                   stream=stream)),
+                ("any", lambda: ik.any_hit(co, phi_s, st, cb,
+                                           stream=stream))):
+            times[variant(query, stream)] = {
+                "ms": ms_per_call(call), "plain_ms": plain[query],
+                "bound_ms": bounds[query][0], "bound_by": bounds[query][1],
+                "library_ms": None, "timed_at": shapes_of[query]}
+    for k, t in times.items():
+        log("bigscene", f"time {k}: kernel {t['ms']:.4f} ms (median of "
             f"{TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back calls, the "
-            f"wrapper's schedule build included), plain {pms:.4f} ms "
-            f"(median of 3 single calls), {shape}, on {card}")
+            f"wrapper's schedule build included), plain {t['plain_ms']:.4f} "
+            f"ms (median of 3 single calls), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), {t['timed_at']}, on {card}")
     return times
 
 
@@ -666,6 +773,203 @@ def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
     return launches, phase_big_timing(ik, intersect, s, card)
 
 
+# ---------------------------------------------------------------------------
+# K5, the approximate reciprocal
+
+def phase_recip(device, card):
+    """K5's entry point at the probe's n = 2^20 on the card, with the
+    counts set to 0 before it; then K5 against its plain version, and K5,
+    torch.reciprocal (the library yardstick) and the plain version timed
+    at 2^20 (8 MB, inside the 50 MB L2) and 2^26 (512 MB, past it)."""
+    import torch
+    from tracer_tpu_torch.ops import recip
+    from tracer_tpu_torch.utils import measure_recip
+    recip.reset_counts()
+    res = measure_recip.measure(RECIP_SIZES[0], device)
+    launches = recip.launches[recip.NAME]
+    print(json.dumps(res), flush=True)
+    log("recip", f"measure n={res['n']}: max_rel {res['max_rel']:.4e} = "
+        f"2^{res['log2_max']:.3f}, p99.9 {res['p999_rel']:.4e}, limits "
+        f"APPROX_RECIP_REL = 2^-8 (the JAX package's slack) and "
+        f"RCP_APPROX_REL = 2^-22 (rcp.approx's 1 ulp), kernel="
+        f"{res['kernel']}, launches={launches}, on {card}")
+    if not res["kernel"] or launches != 1:
+        raise AssertionError("measure_recip did not launch K5 once")
+    if not res["max_rel"] <= min(recip.APPROX_RECIP_REL, recip.RCP_APPROX_REL):
+        raise AssertionError("K5's error exceeds RCP_APPROX_REL")
+    x20 = torch.as_tensor(measure_recip.inputs(RECIP_SIZES[0]), device=device)
+    out = {"launches": launches, "max_abs_err": 0.0}
+    for n in RECIP_SIZES:
+        x = x20.repeat(n // x20.numel())
+        y, ref = recip.approx_reciprocal(x), recip.approx_reciprocal_ref(x)
+        torch.cuda.synchronize()
+        rel = float(((y.double() - ref.double()) / ref.double()).abs().max())
+        abs_err = float((y - ref).abs().max())
+        if not rel <= recip.RCP_APPROX_REL:
+            raise AssertionError(f"K5 disagrees with its plain version at {n}")
+        t = {"ms": ms_per_call(lambda: recip.approx_reciprocal(x)),
+             "library_ms": ms_per_call(lambda: torch.reciprocal(x)),
+             "plain_ms": ms_per_call(lambda: recip.approx_reciprocal_ref(x))}
+        t["bound_ms"], t["bound_by"] = bound(8 * n, 0)
+        log("recip", f"n=2^{n.bit_length() - 1}: K5 {t['ms']:.4f} ms, "
+            f"torch.reciprocal {t['library_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (8 B x n "
+            f"at 3.35 TB/s), roofline share "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}%; vs plain: max rel {rel:.3e}, max abs {abs_err:.3e} "
+            f"(median of {TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back "
+            f"calls, on {card})")
+        if n == RECIP_SIZES[0]:
+            out.update(t, max_abs_err=abs_err,
+                       timed_at=f"n = 2^20 f32, the probe's inputs")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LiDAR capture
+
+def fan_lanes(phi, tmax, cam, origin):
+    """Shadow lanes aimed at the transmitter fan: live lanes whose light
+    point (the ray's end plus the occlusion slack) lies on the fan's disk
+    around the camera origin."""
+    import torch
+    from tracer_tpu_torch.engine import direct
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
+    end = phi[3:6] + phi[0:3] * (tmax + direct.OCCLUSION_EPS)
+    r = torch.linalg.vector_norm(
+        end - torch.tensor(origin, device=phi.device)[:, None], dim=0)
+    return (tmax > 0) & (r <= float(cam.conf.trans_radius) + 0.02)
+
+
+def check_capture_queries(ik, integrator, s, card, errs):
+    """K1 and K3 against their plain versions on every closest- and
+    any-hit query of one 1-spp frame of the capture, as the path hands
+    them to the kernels (tapped at the wrapper)."""
+    closest, anyq = [], []
+    with tap(ik, "closest_hit", closest), tap(ik, "any_hit", anyq):
+        integrator.render_frames(s.seed, s.nonce, s.scene, s.cam,
+                                 s.ambience, LIDAR_W, LIDAR_H,
+                                 s.transmitter_kind, 1, s.render_mode,
+                                 with_points=True)
+    if not closest or len(closest) != len(anyq):
+        raise AssertionError("the capture frame made no kernel queries")
+    fan = []
+    for i, ((co, phi, tm, cb), kw, _) in enumerate(closest):
+        errs["closest_hit"] = max(errs["closest_hit"], check_closest(
+            ik, f"capture bounce {i}", co, phi, tm, cb, phase="lidar", **kw))
+    for i, ((co, phi, tm, cb), kw, hit) in enumerate(anyq):
+        f = fan_lanes(phi, tm, s.cam, CAM_ORIGIN)
+        fan.append((int(f.sum()), int((hit & f).sum())))
+        errs["any_hit"] = max(errs["any_hit"], check_any(
+            ik, f"capture bounce {i} (fan lanes {fan[-1][0]}, of them "
+            f"occluded {fan[-1][1]})", co, phi, tm, cb, phase="lidar", **kw))
+    log("lidar", f"K1/K3 held to the plain versions on {len(closest)} "
+        f"bounces of a 1-spp {LIDAR_W}x{LIDAR_H} frame: "
+        f"{closest[0][0][1].shape[1]} closest rays and "
+        f"{anyq[0][0][1].shape[1]} shadow lanes per bounce, "
+        f"{sum(k for k, _ in fan)} shadow lanes aimed at the transmitter "
+        f"fan, on {card}")
+    if fan[0][0] == 0:
+        raise AssertionError("no shadow lane of the capture aims at the fan")
+
+
+def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
+    """The reference's demo-save capture through the entry points, and the
+    checks of the LiDAR and flash sensors. Returns the capture's
+    launches."""
+    import torch
+    from tracer_tpu_torch.engine import keys
+    tris, tm, mats = scene_arrays
+    s = T.init(0, LIDAR_H, LIDAR_W, 2, tris, tm, mats, cam_origin=CAM_ORIGIN,
+               device=device)
+    T.sample_points_n(s, 1)   # warm-up
+    torch.cuda.synchronize()
+    frames = []
+    ik.reset_counts()
+    t0 = time.perf_counter()
+    with tap(integrator, "render_frames", frames):
+        s2, pts = T.sample_points_n(s, LIDAR_SPP)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, plain = dict(ik.launches), dict(ik.plain_calls)
+    if len(frames) != 1:
+        raise AssertionError("sample_points_n did not render once")
+    rays = frames[0][2]["rays_traced"]
+    del frames
+    has = pts[..., 3] > 0
+    share = float(has.float().mean())
+    log("lidar", f"sample_points_n {LIDAR_W}x{LIDAR_H} x {LIDAR_SPP} spp "
+        f"(config 2, {s.transmitter_kind} transmitter): {secs:.3f} s, "
+        f"rays_traced={rays}, {rays / secs / 1e6:.2f} Mrays/s; returns "
+        f"{100 * share:.2f}% of pixels; launches={launches} "
+        f"plain_calls={plain}; on {card}")
+    if tuple(pts.shape) != (LIDAR_H, LIDAR_W, 4):
+        raise AssertionError(f"points of shape {tuple(pts.shape)}")
+    miss = torch.tensor([-1.0, -1.0, -1.0, 0.0], device=device)
+    if not bool((pts[~has] == miss).all()):
+        raise AssertionError("a pixel without a return is not (-1,-1,-1,0)")
+    r = torch.linalg.vector_norm(
+        pts[has][:, :3] - torch.tensor(CAM_ORIGIN, device=device), dim=-1)
+    log("lidar", f"return distances from the camera: {float(r.min()):.4f}"
+        f" .. {float(r.max()):.4f}")
+    if not bool(((r > 0.4) & (r < 10.1)).all()) or share < 0.3:
+        raise AssertionError("returns outside the window, or under 30%")
+    if s2.nonce != s.nonce + LIDAR_SPP:
+        raise AssertionError("the nonce did not advance by spp")
+    if (launches["closest_hit"] <= 0 or launches["any_hit"] <= 0
+            or max(plain.values()) != 0):
+        raise AssertionError("the capture did not run through K1 and K3")
+    del pts
+    check_capture_queries(ik, integrator, s, card, errs)
+    torch.cuda.empty_cache()
+
+    # a 32x32 8-spp capture on the card against the same on the CPU
+    dists = []
+    for dev in (device, "cpu"):
+        sm = T.init(0, 32, 32, 2, tris, tm, mats, cam_origin=CAM_ORIGIN,
+                    device=dev)
+        o = integrator.render_frames(sm.seed, sm.nonce, sm.scene, sm.cam,
+                                     sm.ambience, 32, 32, sm.transmitter_kind,
+                                     8, sm.render_mode, with_points=True)
+        dists.append(o["points"][1].cpu())
+    dc, dr = dists
+    agree = (torch.isclose(dc, dr, rtol=1e-4)
+             | (torch.isinf(dc) & torch.isinf(dr)))
+    frac = float(agree.float().mean())
+    sc, sr = (float(torch.isfinite(x).float().mean()) for x in dists)
+    log("lidar", f"32x32 8spp card vs cpu: distances within rtol 1e-4 on "
+        f"{frac:.4f} of pixels, return shares {sc:.4f} / {sr:.4f}")
+    if frac < 0.99 or abs(sc - sr) > 0.02:
+        raise AssertionError("the card's capture disagrees with the CPU's")
+
+    # 3 distance-mode steps, the merge on
+    sd = T.key(keys.KEYDOWN, keys.SDLK_m, s)
+    for _ in range(3):
+        sd = T.step(sd)
+        if not bool(torch.isfinite(sd.img).all()) or float(
+                sd.img.min()) < 0 or float(sd.img.max()) > 1.0 + 1e-6:
+            raise AssertionError("a distance frame is not finite in [0, 1]")
+    log("lidar", f"3 distance-mode steps: n_frames={sd.n_frames}, pixels "
+        f"with a return {float((sd.img.sum(-1) > 0).float().mean()):.4f}")
+    del sd
+
+    # the flash: config 1 against config 0 on the box with no emission
+    dark_mats = mats.copy()
+    dark_mats[:, 16:28] = [-1.0, 0.0] * 6
+    means = {}
+    for conf in (0, 1):
+        sf = T.init(0, 128, 128, conf, tris, tm, dark_mats,
+                    cam_origin=CAM_ORIGIN, device=device)
+        means[conf] = float(T.sample_n_frames(sf, 17).mean())
+    log("lidar", f"128x128 16spp, emission killed: config 0 mean "
+        f"{means[0]:.3e}, config 1 (flash) mean {means[1]:.3e}")
+    if not (means[0] < 1e-4 and means[1] > 10 * max(means[0], 1e-6)):
+        raise AssertionError("the flash does not light the dark box")
+
+    phase_breakdown(integrator, ik, s, card, ("closest_hit", "any_hit"),
+                    phase="lidar")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -676,7 +980,8 @@ def main():
     try:
         import tracer_tpu_torch as T
         from tracer_tpu_torch.engine import integrator
-        from tracer_tpu_torch.ops import intersect, intersect_kernel as ik
+        from tracer_tpu_torch.ops import cuda_lib, intersect
+        from tracer_tpu_torch.ops import intersect_kernel as ik
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -693,8 +998,9 @@ def main():
     print(card, flush=True)
 
     ik.build()
-    info = ik.build_info()
-    log("build", f"nvcc build of csrc/intersect.cu: {info['seconds']:.2f} s")
+    info = cuda_lib.build_info()
+    log("build", f"nvcc build of {' and '.join(info['sources'])} into one "
+        f"library: {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build", line.strip())
@@ -718,13 +1024,24 @@ def main():
                                          device, errs, cornell_mean)
     launches.update({k: big_launches[k] for k in
                      ("closest_hit_streamed", "any_hit_streamed")})
+    torch.cuda.empty_cache()
+    k5 = phase_recip(device, card)
+    torch.cuda.empty_cache()
+    lidar_launches = phase_lidar(T, integrator, ik, scene_arrays, card,
+                                 device, errs)
+    log("lidar", f"capture launches {lidar_launches}")
 
+    fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "timed_at")
     kernels = [{"name": f"{k}_kernel", "route": "cuda",
                 "source": "tracer_tpu_torch/csrc/intersect.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1], "timed_at": times[k][2]}
+                "max_abs_err": errs[k], **times[k]}
                for k in VARIANTS]
+    kernels.append({"name": "approx_reciprocal_kernel", "route": "cuda",
+                    "source": "tracer_tpu_torch/csrc/recip.cu",
+                    "replaces": "benchmarks/measure_recip.py:30",
+                    **{k: k5[k] for k in fields}})
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was not launched")
     log("result", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")

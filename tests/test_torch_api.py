@@ -64,8 +64,8 @@ def _assert_states_close(a, b):
                                    atol=1e-7)
 
 
-@pytest.mark.parametrize("conf, scene", [(0, "cornell"), (2, "cornell"),
-                                         (0, "cornell_sub4")])
+@pytest.mark.parametrize("conf, scene", [(0, "cornell"), (1, "cornell"),
+                                         (2, "cornell"), (0, "cornell_sub4")])
 def test_init_matches_converted_jax_state(conf, scene):
     js, ts = _pair(conf=conf, scene=scene)
     _assert_states_close(ts, _conv(js))
@@ -130,13 +130,24 @@ def test_key_and_resize_parity():
 
 
 def test_cycled_config_renders_raise():
-    _, ts = _pair()
-    ts = T.key(keys.KEYDOWN, keys.SDLK_t, ts)
-    assert ts.cam_conf_id == 1 and ts.transmitter_kind == "flash"
+    """'t' cycles to the flash (1) and LiDAR (2) configs, whose frames now
+    render as the JAX package's do; what is still unported, the LBVH
+    accel, raises."""
+    js, ts = _pair()
+    for conf, kind, mode in ((1, "flash", "color"),
+                             (2, "scanning", "distance")):
+        js = J.key(keys.KEYDOWN, keys.SDLK_t, js)
+        ts = T.key(keys.KEYDOWN, keys.SDLK_t, ts)
+        assert (ts.cam_conf_id, ts.transmitter_kind, ts.render_mode) == (
+            conf, kind, mode)
+        js, ts = J.step(js), T.step(ts)
+        px_ok = np.isclose(ts.img.numpy(), np.asarray(js.img), rtol=1e-4,
+                           atol=1e-5).all(axis=-1)
+        assert px_ok.mean() >= 0.99 and float(ts.img.max()) > 0
+    tris, tm, mats = _scene("cornell")
     with pytest.raises(NotImplementedError,
-                       match=r"sensor configs 1 and 2.*\(ROADMAP\.md, "
-                             r"Queue 1\)"):
-        T.step(ts)
+                       match=r"LBVH.*\(ROADMAP\.md, Queue 1\)"):
+        T.init(0, 8, 8, 0, tris, tm, mats, accel="lbvh", device="cpu")
 
 
 def test_import_pulls_in_no_jax():
@@ -144,7 +155,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, tracer_tpu_torch as T; "
             "from tracer_tpu_torch.engine import api; "
             "from tracer_tpu_torch.utils import convert, kernel_cases, "
-            "objloader, testscenes; "
+            "image, measure_recip, objloader, pcd, testscenes; "
+            "from tracer_tpu_torch.frontends import save_demo; "
+            "from tracer_tpu_torch.ops import recip; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'tracer_tpu' not in sys.modules, 'tracer_tpu imported'")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -93,21 +93,20 @@ def test_sample_n_frames_matches_pooled(name):
     assert abs(out["rays_traced"] - rays_j) <= 1e-3 * rays_j
 
 
-NOT_PORTED = r"sensor configs 1 and 2.*\(ROADMAP\.md, Queue 1\)"
-
-
 def test_not_ported_paths_raise():
+    """Sensor configs 1 and 2, distance mode and sample_points_n are ported
+    (tests/test_torch_lidar.py); the LBVH accel is not and raises, and an
+    unknown transmitter or render mode is refused."""
     js, ts = _states("cornell", 8)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+    with pytest.raises(ValueError, match="transmitter_kind"):
         tint.render_frames(ts.seed, 0, ts.scene, ts.cam, ts.ambience, 8, 8,
-                           "flash", 1, "color")
-    with pytest.raises(NotImplementedError, match=NOT_PORTED):
+                           "laser", 1, "color")
+    with pytest.raises(ValueError, match="render_mode"):
         tint.render_frames(ts.seed, 0, ts.scene, ts.cam, ts.ambience, 8, 8,
-                           "none", 1, "distance")
-    with pytest.raises(NotImplementedError,
-                       match=r"sample_points_n .*LiDAR point cloud "
-                             r"\(ROADMAP\.md, Queue 1\)"):
-        T.sample_points_n(ts, 2)
+                           "none", 1, "depth")
+    out = tint.render_frames(ts.seed, 0, ts.scene, ts.cam, ts.ambience, 8, 8,
+                             "flash", 1, "distance", with_points=True)
+    assert out["img"].shape == (8, 8, 3) and out["points"][1].shape == (64,)
     lbvh = J.init(0, 8, 8, 0, *testscenes.cornell_like(),
                   cam_origin=(0.0, 0.8, 1.8), accel="lbvh")
     with pytest.raises(NotImplementedError,

@@ -222,6 +222,49 @@ def test_bad_walk_options_raise(bad):
         tint.any_hit_phi(td, 4.0, phi, **bad)
 
 
+@pytest.mark.parametrize("query", ["closest", "any"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_needed_tests_counts_entered_chunks(name, query):
+    """kernel_cases.needed_tests (the count behind the kernels' bound)
+    against a lane-by-lane numpy slab test: closest, the chunks each ray
+    enters in [0, best t]; any hit at tmax 4, one chunk per occluded lane
+    and the chunks the others enter in [0, 4)."""
+    _, jd, o, d = _case(name)
+    td = _dense_t(jd)
+    phi = tint.ray_features_t(_v3t(o), _v3t(d))
+    if query == "closest":
+        bt, _ = ik.closest_hit_ref(td.coeffs, phi, 1e30, td.chunk_bounds)
+        bound, occ = torch.where(torch.isfinite(bt), bt, 1e30), None
+    else:
+        bound = torch.full((o.shape[0],), 4.0)
+        occ = ik.any_hit_ref(td.coeffs, phi, 4.0, td.chunk_bounds)
+    cb = td.chunk_bounds.numpy()
+    chunk_t = td.coeffs.shape[1] // cb.shape[0]
+    want = 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for lane in range(o.shape[0]):
+            if occ is not None and occ[lane]:
+                want += chunk_t
+                continue
+            for box in cb:
+                if box[0] > box[3]:
+                    continue
+                tmin, tmx, inside = np.float32(0), np.float32(bound[lane]), True
+                for k in range(3):
+                    if d[lane, k] == 0:
+                        inside &= bool(box[k] <= o[lane, k] <= box[3 + k])
+                        continue
+                    inv = np.float32(1) / d[lane, k]
+                    t0 = (box[k] - o[lane, k]) * inv
+                    t1 = (box[3 + k] - o[lane, k]) * inv
+                    tmin = max(tmin, min(t0, t1))
+                    tmx = min(tmx, max(t0, t1))
+                enters = tmin <= tmx and (occ is None or tmin < bound[lane])
+                want += chunk_t * bool(inside and enters)
+    got = kc.needed_tests(phi, bound, td.chunk_bounds, chunk_t, occ)
+    assert 0 < got == want < o.shape[0] * td.coeffs.shape[1]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -1,20 +1,28 @@
 """tracer_tpu_torch — the PyTorch / CUDA port of tracer_tpu.
 
-The same spectral Monte Carlo path tracer as the JAX package beside it,
-run eagerly in PyTorch, with the two intersection kernels written by
-hand in CUDA C++ for Hopper (csrc/intersect.cu). The layout mirrors
-tracer_tpu:
+The same spectral Monte Carlo path tracer and LiDAR sensor simulator as
+the JAX package beside it, run eagerly in PyTorch, with its kernels
+written by hand in CUDA C++ for Hopper: the four intersection kernels
+(csrc/intersect.cu) and the approximate-reciprocal probe (csrc/recip.cu).
+The layout mirrors tracer_tpu:
 
-  engine/    public API (init/step/render/key/resize/sample_n_frames/
-             step_render), engine state, per-frame wavefront integrator,
-             NEE+MIS direct lighting
-  models/    camera, sensor configs, lights, scene assembly
-  ops/       vector math, counter-based RNG, spectra, geometry,
-             materials, dense intersector and its kernel wrappers
-  utils/     OBJ loader, procedural test scenes, conversion of a JAX
-             engine state into this package's state, the kernels' test
-             cases
-  csrc/      CUDA C++ kernel sources, built with nvcc at first use
+  engine/     public API (init/step/render/key/resize/sample_n_frames/
+              sample_points_n/step_render), engine state, per-frame
+              wavefront integrator, NEE+MIS direct lighting with the
+              sensors' transmitter fan
+  models/     camera, sensor configs, lights, scene assembly
+  ops/        vector math, counter-based RNG, spectra, geometry,
+              materials, dense intersector, the kernels' wrappers and
+              their build (cuda_lib)
+  utils/      OBJ loader, procedural test scenes, PCD and PNG writers,
+              conversion of a JAX engine state into this package's state,
+              the kernels' test cases, the reciprocal probe
+  frontends/  the LiDAR capture (python -m
+              tracer_tpu_torch.frontends.save_demo)
+  csrc/       CUDA C++ kernel sources, built with nvcc at first use
+
+The entry points run on the CUDA card unless the caller names another
+device.
 
 The package imports torch and numpy, never jax nor the JAX package.
 """

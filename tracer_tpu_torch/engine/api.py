@@ -7,10 +7,10 @@
   key               runtime UI state machine (host-side)
   resize            swap dimensions, drop accumulation
   sample_n_frames   offline progressive render
-  sample_points_n   LiDAR capture: not ported yet, raises
+  sample_points_n   LiDAR point-cloud capture
 
 Everything runs eagerly on the device the state was built on; `init`
-requires that device explicitly.
+builds on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from tracer_tpu_torch.engine.state import EngineState
 from tracer_tpu_torch.models import camera as cam_mod
 from tracer_tpu_torch.models import scene as scene_mod
 from tracer_tpu_torch.models import sensors
+from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import rng as prng
 from tracer_tpu_torch.ops import spectrum as spec
 
@@ -32,7 +33,7 @@ def init(seed: int, h: int, w: int, cam_conf_id: int,
          tri_geoms, tri_mats, mat_data,
          cam_pitch: float = 0.0, cam_yaw: float = 0.0,
          cam_origin=(0.0, 0.0, 0.0), accel: str = "auto", *,
-         device) -> EngineState:
+         device="cuda") -> EngineState:
     """Build the scene and the initial engine state on `device`.
 
     tri_geoms (n,3,3) f32, tri_mats (n,) u32, mat_data (m,28) f32, as
@@ -63,20 +64,24 @@ def _fit_img(s: EngineState) -> EngineState:
     return s
 
 
-def _render(s: EngineState, nonce: int, spp: int):
+def _render(s: EngineState, nonce: int, spp: int, with_points=False):
     w, h = s.sub_dims
     return integrator.render_frames(
         s.seed, nonce, s.scene, s.cam, s.ambience, w, h, s.transmitter_kind,
-        spp, s.render_mode)
+        spp, s.render_mode, with_points=with_points)
 
 
 def step(s: EngineState) -> EngineState:
-    """Advance one progressive frame: fresh, or EMA-accumulated when the
-    mode is on and a frame exists."""
+    """Advance one progressive frame: fresh, or merged into the image
+    when the mode is on and a frame exists (an EMA in colour mode; in
+    distance mode a pixel keeps its first return)."""
     s = _fit_img(s)
     img_new = _render(s, s.nonce, 1)["img"]
     if s.mode and s.n_frames > 0:
-        img = integrator.accumulate_color(s.img, img_new, s.n_frames)
+        if s.render_mode == sensors.RENDER_DISTANCE:
+            img = integrator.accumulate_distance(s.img, img_new)
+        else:
+            img = integrator.accumulate_color(s.img, img_new, s.n_frames)
         n_frames = (s.n_frames + 1) & prng.MASK
     else:
         img, n_frames = img_new, 1
@@ -187,6 +192,14 @@ def sample_n_frames(s: EngineState, n: int) -> torch.Tensor:
 
 
 def sample_points_n(s: EngineState, samples_per_pixel: int):
-    raise NotImplementedError(
-        "sample_points_n is not ported yet: sensor configs 1 and 2 and the "
-        "LiDAR point cloud (ROADMAP.md, Queue 1)")
+    """LiDAR batch capture (tracer_tpu/engine/api.py:260-276): spp
+    samples per pixel from s.nonce, the closest return per pixel in the
+    [0.5, 10) window, intensity scaled by 1/spp. Returns (s with nonce +
+    spp, (h_sub, w_sub, 4) f32 [x, y, z, intensity]); a pixel without a
+    return is (-1, -1, -1, 0)."""
+    spp = int(samples_per_pixel)
+    w, h = s.sub_dims
+    pos, _, inten = _render(s, s.nonce, spp, with_points=True)["points"]
+    points = torch.cat([la.v3_to_array(pos), inten[:, None]], dim=-1)
+    return (replace(s, nonce=(s.nonce + spp) & prng.MASK),
+            points.reshape(h, w, 4))

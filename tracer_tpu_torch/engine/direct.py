@@ -1,15 +1,15 @@
 """Next-event estimation with balance-heuristic MIS (port of
 tracer_tpu/engine/direct.py).
 
-Per bounce each live lane picks ONE light uniformly and combines a
-light-area sample with a BSDF sample by the balance heuristic. Both MIS
+Per bounce each live lane picks ONE light uniformly, from the scene
+lights and the 8 sectors of the sensor's transmitter fan (configs 1 and
+2), and combines a light-area sample with a BSDF sample by the balance
+heuristic. Both MIS
 halves' shadow queries go into one any_hit over 2N lanes, repacked so
 that the first N lanes carry whichever half is live and the second N
 only the lanes where both are; a half whose contribution is provably
 zero is traced with tmax 0. This decides which lanes the any-hit kernel
 traces. Occlusion consumes no RNG.
-
-The transmitter fan of sensor configs 1 and 2 is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from tracer_tpu_torch.models import camera as cam_mod
 from tracer_tpu_torch.models import lights as lights_mod
 from tracer_tpu_torch.models import scene as scene_mod
 from tracer_tpu_torch.ops import linalg as la
@@ -38,18 +39,66 @@ class LaneLights(NamedTuple):
     em_val: torch.Tensor  # (N,)
 
 
-def select_lane_light(state, scene: scene_mod.Scene, wavelen):
-    """Uniformly pick one scene light per lane. Returns (state,
-    LaneLights, n_lights), or (state, None, 0) without lights."""
-    n_lights = scene.lights.count
+class Transmitter(NamedTuple):
+    """The sensor's transmitter fan as a light (sensor configs 1 and 2)."""
+    kind: float            # lights_mod.KIND_FRUSTUM_AREA or KIND_DIFFUSE_AREA
+    sectors: torch.Tensor  # (TRANSMITTER_SECTORS, 9, N or 1): a, b, c rows
+    theta: torch.Tensor    # scalar, radians (the scanning frustum's)
+    emission: torch.Tensor  # (6, 2) spectrum
+
+
+def transmitter(cam: cam_mod.Camera, transmitter_kind: str, ray_dir):
+    """The fan of camera.gen_transmitter_sectors for primary directions
+    ray_dir (3, N), its sectors stacked, as a Transmitter; None without
+    one. The scanning fan is a 3-degree frustum light (theta =
+    trans_theta), the flash fan a diffuse one."""
+    sectors = cam_mod.gen_transmitter_sectors(cam, transmitter_kind, ray_dir)
+    if sectors is None:
+        return None
+    kind = float(lights_mod.KIND_FRUSTUM_AREA
+                 if transmitter_kind == cam_mod.TRANSMITTER_SCANNING
+                 else lights_mod.KIND_DIFFUSE_AREA)
+    return Transmitter(kind, torch.stack([torch.cat(s) for s in sectors]),
+                       cam.conf.trans_theta, cam.conf.trans_emission)
+
+
+def select_lane_light(state, scene: scene_mod.Scene, wavelen,
+                      trans: Transmitter | None = None):
+    """Uniformly pick one light per lane from the scene lights and the
+    transmitter fan's sectors (tracer_tpu/engine/direct.py:48-102): index
+    li < n_scene is a row of the light table, li >= n_scene the sector
+    li - n_scene of trans. Returns (state, LaneLights, n_lights), or
+    (state, None, 0) without any light."""
+    n_scene = scene.lights.count
+    n_trans = 0 if trans is None else trans.sectors.shape[0]
+    n_lights = n_scene + n_trans
     if n_lights == 0:
         return state, None, 0
     state, li = prng.select(state, n_lights)
-    rows = scene.light_table[li.long()].T   # (23, N)
-    em_val = spec.lookup_pairs(
-        wavelen, [(rows[9 + 2 * k], rows[10 + 2 * k]) for k in range(6)])
-    return state, LaneLights(kind=rows[22], a=rows[0:3], b=rows[3:6],
-                             c=rows[6:9], theta=rows[21],
+    n = wavelen.shape[0]
+    if n_scene > 0:
+        rows = scene.light_table[li.clamp(0, n_scene - 1).long()].T  # (23, N)
+        kind, theta = rows[22], rows[21]
+        va, vb, vc = rows[0:3], rows[3:6], rows[6:9]
+        em_val = spec.lookup_pairs(
+            wavelen, [(rows[9 + 2 * k], rows[10 + 2 * k]) for k in range(6)])
+    else:
+        zero = torch.zeros((n,), device=wavelen.device)
+        kind, theta, em_val = zero, zero, zero
+        va = vb = vc = torch.zeros((3, n), device=wavelen.device)
+    if n_trans:
+        ti = (li - n_scene).clamp(0, n_trans - 1).long()
+        sec = torch.gather(trans.sectors.expand(n_trans, 9, n), 0,
+                           ti.expand(1, 9, n))[0]  # (9, N)
+        is_t = li >= n_scene
+        kind = torch.where(is_t, trans.kind, kind)
+        va = torch.where(is_t, sec[0:3], va)
+        vb = torch.where(is_t, sec[3:6], vb)
+        vc = torch.where(is_t, sec[6:9], vc)
+        theta = torch.where(is_t, trans.theta, theta)
+        em_val = torch.where(is_t, spec.lookup_table(wavelen, trans.emission),
+                             em_val)
+    return state, LaneLights(kind=kind, a=va, b=vb, c=vc, theta=theta,
                              em_val=em_val), n_lights
 
 
@@ -162,11 +211,13 @@ def estimate_direct(state, scene: scene_mod.Scene, wo,
 
 
 def direct_radiance(state, scene: scene_mod.Scene, wo,
-                    inter: scene_mod.Interaction, wavelen, mask=None):
-    """One-light estimate scaled by the light count. Returns (state,
-    radiance (N,))."""
+                    inter: scene_mod.Interaction, wavelen,
+                    trans: Transmitter | None = None, mask=None):
+    """One-light estimate scaled by the light count, scene lights plus
+    transmitter sectors (tracer_tpu/engine/direct.py:242-257). Returns
+    (state, radiance (N,))."""
     n_rays = wo.shape[-1]
-    state, light, n_lights = select_lane_light(state, scene, wavelen)
+    state, light, n_lights = select_lane_light(state, scene, wavelen, trans)
     if light is None:
         return state, torch.zeros((n_rays,), device=wo.device)
     state, radiance = estimate_direct(state, scene, wo, inter, light,

@@ -18,10 +18,14 @@ import torch
 
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import rng as prng
+from tracer_tpu_torch.ops import shapes
 
 TRANSMITTER_NONE = "none"
 TRANSMITTER_FLASH = "flash"
 TRANSMITTER_SCANNING = "scanning"
+TRANSMITTER_KINDS = (TRANSMITTER_NONE, TRANSMITTER_FLASH, TRANSMITTER_SCANNING)
+
+TRANSMITTER_SECTORS = 8  # disk fan resolution (camera.fut:113)
 
 
 class CameraConfig(NamedTuple):
@@ -144,3 +148,20 @@ def sample_ray(state, cam: Camera, wh, jx, iy):
     origin = origin0 + lens_offset
     target = lower_left + x * horizontal + y * vertical
     return state0, origin, la.v3_normalize(target - origin)
+
+
+def gen_transmitter_sectors(cam: Camera, transmitter_kind: str, ray_dir):
+    """The transmitter: an 8-sector disk fan of radius trans_radius at the
+    camera origin (tracer_tpu/models/camera.py:185-201). The flash fan
+    faces cam_dir and is one (3, 1) fan for every lane; the scanning fan
+    faces each lane's own primary direction ray_dir (3, N). Returns a
+    list of TRANSMITTER_SECTORS (a, b, c) V3 tuples, or None."""
+    if transmitter_kind == TRANSMITTER_NONE:
+        return None
+    if transmitter_kind == TRANSMITTER_FLASH:
+        normal = cam_dir(cam)[:, None]
+    else:
+        normal = ray_dir
+    origin = cam.origin[:, None].expand(normal.shape)
+    return shapes.disk_sectors_v(origin, normal, cam.conf.trans_radius,
+                                 TRANSMITTER_SECTORS)

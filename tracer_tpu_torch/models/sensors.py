@@ -5,8 +5,8 @@ tracer_tpu/models/sensors.py).
   1 visual_flash  same sensor + blackbody flash transmitter
   2 lidar         single 1550nm channel + scanning transmitter
 
-All three build their CameraConfig; rendering configs 1 and 2 (the
-transmitter fan and the distance mode) is not ported yet and raises.
+Configs 1 and 2 carry a transmitter, the 8-sector fan of
+camera.gen_transmitter_sectors; config 2 renders in distance mode.
 """
 
 from __future__ import annotations

@@ -28,28 +28,18 @@ index).
 Dispatch: a tensor on the CPU goes to the plain version (closest_hit_ref,
 any_hit_ref, the chunked exact-f32 form of tracer_tpu/ops/intersect.py);
 a CUDA tensor launches the kernel or raises. The kernels are built with
-nvcc at first use into build/tracer_tpu_torch/ beside the package, keyed
-on a hash of every source under csrc/, and loaded with ctypes.
+nvcc at first use by ops/cuda_lib.py, with every other source under
+csrc/, and loaded with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
+import functools
 
 import torch
 
-from tracer_tpu_torch.ops import shapes
-
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCE = CSRC / "intersect.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from tracer_tpu_torch.ops import cuda_lib, shapes
 
 # Lanes per CUDA block: the tile of the chunk schedule (csrc/intersect.cu
 # kBlock, checked at load through kernel_block()).
@@ -87,50 +77,12 @@ def reset_counts() -> None:
 # ---------------------------------------------------------------------------
 # Build and load
 
-class _Built:
-    lib: ctypes.CDLL | None = None
-    seconds: float = 0.0
-    log: str = ""
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is required to "
-                           "build tracer_tpu_torch/csrc/intersect.cu")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"nvcc not found under {CUDA_HOME}")
-    return str(nvcc)
-
-
-def _sources_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode() + b"\0" + path.read_bytes())
-    return h.hexdigest()
-
-
+@functools.cache
 def build() -> ctypes.CDLL:
-    """Compile csrc/intersect.cu (once per hash of the csrc sources) and
-    load it.
-
-    nvcc's log, with each kernel's registers, shared memory and spills
-    (-Xptxas -v), is kept in build_info()."""
-    if _Built.lib is not None:
-        return _Built.lib
-    out = BUILD_DIR / f"libintersect-{_sources_digest()[:16]}.so"
-    t0 = time.perf_counter()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _Built.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_Built.log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    """The kernels' library (ops/cuda_lib.load: every csrc source, built
+    once per hash of the sources), with the intersection entry points
+    declared and kBlock checked against BLOCK."""
+    lib = cuda_lib.load()
     lib.kernel_block.argtypes = []
     lib.kernel_block.restype = ctypes.c_int
     if lib.kernel_block() != BLOCK:
@@ -141,14 +93,7 @@ def build() -> ctypes.CDLL:
     lib.closest_hit_launch.restype = ctypes.c_int
     lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 2
     lib.any_hit_launch.restype = ctypes.c_int
-    _Built.seconds = time.perf_counter() - t0
-    _Built.lib = lib
     return lib
-
-
-def build_info() -> dict:
-    """Seconds the last build() took (0 before it ran) and nvcc's log."""
-    return {"seconds": _Built.seconds, "log": _Built.log}
 
 
 # ---------------------------------------------------------------------------
@@ -219,10 +164,6 @@ def _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed):
 
 def _ptr(x) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if x is None else x.data_ptr())
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +329,8 @@ def _launch(entry, name, coeffs, phi, tmax, chunk_bounds, n_chunks, chunk_t,
     err = entry(int(streamed), _ptr(coeffs), _ptr(phi), _ptr(tmax),
                 _ptr(chunk_bounds), _ptr(sbounds), _ptr(order), _ptr(count),
                 phi.shape[1], coeffs.shape[1], n_chunks, chunk_t, g,
-                sbounds.shape[0], *map(_ptr, outs), _stream(phi.device))
+                sbounds.shape[0], *map(_ptr, outs),
+                cuda_lib.stream_ptr(phi.device))
     if err:
         raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
     launches[name] += 1

@@ -7,6 +7,8 @@ layout for the brute-force intersection oracle.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tracer_tpu_torch.ops import linalg as la
@@ -71,3 +73,25 @@ def hit_triangle_v(tmax, origin, d, ta, tb, tc):
     pos = origin + torch.where(ok, t, 0.0) * d
     normal = la.v3_normalize(n, eps=1e-30)
     return ok, t, pos, normal
+
+
+def disk_sectors_v(p, normal, radius, n_sectors: int):
+    """Disk triangle fan around p facing `normal`, V3 layout
+    (tracer_tpu/ops/shapes.py:172-196). p and normal broadcast to a common
+    (3, N) or (3, 1); returns a list of n_sectors (a, b, c) V3 tuples. A
+    normal parallel to up takes right = (1, 0, 0)."""
+    a = 2.0 * math.pi / n_sectors
+    up_axis = la.v3_const(0.0, 1.0, 0.0, device=normal.device)
+    c = la.v3_cross(normal, up_axis.expand(normal.shape))
+    cq = la.v3_quadrance(c)
+    safe = c * torch.rsqrt(torch.clamp_min(cq, 1e-30))
+    right = torch.where(cq == 0.0,
+                        la.v3_const(1.0, 0.0, 0.0, device=normal.device), safe)
+    up = la.v3_normalize(la.v3_cross(right, normal), eps=1e-30)
+    out = []
+    for i in range(n_sectors):
+        b0, b1 = a * i, a * (i + 1)
+        v0 = math.cos(b0) * right + math.sin(b0) * up
+        v1 = math.cos(b1) * right + math.sin(b1) * up
+        out.append((p, p + radius * v1, p + radius * v0))
+    return out

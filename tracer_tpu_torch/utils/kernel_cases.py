@@ -8,6 +8,8 @@ Used by tests/test_torch_intersect.py and chip_smoke.py.
   on_plane_rays       axis-parallel rays whose origins lie on chunk bounds
   cornell_plane_rays  rays on the Cornell box's bound planes
   boundary_lanes      lanes where two f32 evaluations may rightly differ
+  needed_tests        the (lane, triangle) tests a query needs, for its
+                      bound in operations
 """
 
 from __future__ import annotations
@@ -188,3 +190,57 @@ def boundary_lanes(coeffs, phi, tmax, chunk_bounds, rel: float = 1e-5,
              for i in range(0, n, block)]
     return (torch.cat([e for e, _ in parts]),
             torch.cat([t for _, t in parts]))
+
+
+# f32 operations of one (lane, triangle) test in csrc/intersect.cu
+# (triangle_t): four 10-term dot products (40 FMA, each counted as 2),
+# one divide, three multiplies and one add; the seven comparisons are not
+# counted.
+FLOPS_PER_TEST = 85
+
+
+def _entered(phi, bound, boxes, closed: bool):
+    """(B, N): where each lane's ray enters each non-empty box at a t in
+    [0, bound] (closed) or [0, bound) (open), by the exact slab test: no
+    widening, and a ray parallel to an axis passes it only from inside
+    that slab. A lane with a NaN feature or bound enters nothing."""
+    d, o = phi[0:3], phi[3:6]
+    shape = (boxes.shape[0], phi.shape[1])
+    tmin = torch.zeros(shape, device=phi.device)
+    tmx = bound.expand(shape)
+    inside = torch.ones(shape, dtype=torch.bool, device=phi.device)
+    for k in range(3):
+        lo, hi = boxes[:, k, None], boxes[:, 3 + k, None]
+        par = (d[k] == 0.0)[None]
+        inv = 1.0 / torch.where(par, 1.0, d[k][None])
+        t0, t1 = (lo - o[k]) * inv, (hi - o[k]) * inv
+        tmin = torch.maximum(tmin, torch.where(par, 0.0,
+                                               torch.minimum(t0, t1)))
+        tmx = torch.minimum(tmx, torch.where(par, float("inf"),
+                                             torch.maximum(t0, t1)))
+        inside &= ~par | ((lo <= o[k]) & (o[k] <= hi))
+    reach = tmin <= tmx if closed else (tmin <= tmx) & (tmin < bound)
+    return reach & inside & (boxes[:, 0] <= boxes[:, 3])[:, None]
+
+
+def needed_tests(phi, bound, chunk_bounds, chunk_t: int, occluded=None,
+                 batch: int = 1 << 24) -> int:
+    """How many (lane, triangle) tests a query needs at least, a chunk of
+    chunk_t triangles being the unit of work.
+
+    Closest hit (occluded None): per lane, every chunk whose box the ray
+    enters at a t in [0, bound], bound its final best t (the chunk that
+    holds the hit, and every chunk that could hold a nearer one), or tmax
+    where it hits nothing. Any hit: an occluded lane (occluded (N,) bool)
+    needs one chunk, the one that holds its witness; an unoccluded lane
+    every chunk it enters at a t in [0, tmax), bound = tmax."""
+    n = phi.shape[1]
+    bound = torch.as_tensor(bound, dtype=torch.float32,
+                            device=phi.device).expand(n).contiguous()
+    free = None if occluded is None else ~occluded
+    step = max(1, batch // max(n, 1))
+    total = 0 if occluded is None else int(occluded.sum())
+    for i in range(0, chunk_bounds.shape[0], step):
+        hit = _entered(phi, bound, chunk_bounds[i:i + step], occluded is None)
+        total += int((hit if free is None else hit & free).sum())
+    return total * chunk_t
