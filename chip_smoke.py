@@ -8,15 +8,18 @@ any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc-builds csrc/intersect.cu and csrc/recip.cu from the
-              checkout into one library
+              checkout into one library; counts each kernel's shared-
+              memory load instructions in cuobjdump -sass of it (K2's are
+              those of its scan loop, one triangle per iteration)
   3. kernels  the hand kernels against their plain PyTorch versions on
               the card: Cornell camera and first-bounce rays at 512x512,
               a 1,100-triangle 5-chunk random scene with on-plane
               axis-parallel rays and per-lane tmax (also with
               max_sched=3, g = 2 with a padded superchunk, in both
               variants), and the brute-force oracle; then each resident
-              kernel's median time beside its plain version's at the
-              Cornell shapes (CUDA events)
+              kernel's median time, wrapper call and launch alone, beside
+              its plain version's and its bound at the Cornell shapes,
+              where the main path launches it (CUDA events)
   4. main     the port's main path: init a 512x512 Cornell box, render
               16 spp (sample_n_frames(s, 17)), 3 x step_render; checks
               the image and that every kernel launched and no plain
@@ -38,14 +41,21 @@ any failure exits non-zero:
               whose image must pass the Cornell checks and lie within 3%
               of the Cornell image's mean; the breakdown of one 1-spp
               cornell-sub6 render and its chunk schedule statistics; each
-              of the four kernels timed at cornell-sub6's shapes, beside
-              its bound (bytes or operations, whichever is larger)
+              of the four kernels timed at cornell-sub6's shapes, wrapper
+              call and launch alone (utils/kernel_timing.py), beside its
+              bound (bytes or operations, whichever is larger); K2's
+              in-kernel counts as scanned tests per lane beside the plain
+              model's bracket; K2 against K1 on the same rays (best_t
+              bits, best_i outside the tie band)
   7. recip    K5: the approximate-reciprocal probe
               (utils/measure_recip.measure) at n = 2^20 on the card, its
               JSON line, max_rel within APPROX_RECIP_REL = 2^-8 and within
-              RCP_APPROX_REL = 2^-22 (rcp.approx's documented 1 ulp); K5,
-              torch.reciprocal and the plain version timed at 2^20 and
-              2^26 beside the bandwidth bound
+              RCP_APPROX_REL = 2^-22 (rcp.approx's documented 1 ulp); K5
+              against its plain version at 2^20 + 1, 2^20 + 3 and on the
+              offset view x[1:]; K5, torch.reciprocal and the plain version
+              timed at 2^20 and 2^26 beside the bandwidth bound, and for
+              K5 and torch.reciprocal the host microseconds per call and
+              the device time alone (calls replayed from a CUDA graph)
   8. lidar    the LiDAR capture of the reference's demo-save: init(conf
               2) at 640x480, sample_points_n(s, 100), timed, with
               rays_traced taken from the same run; the points' window,
@@ -82,7 +92,6 @@ occluded lane and every chunk an unoccluded lane enters before tmax.
 import contextlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -115,18 +124,6 @@ LIDAR_W, LIDAR_H, LIDAR_SPP = 640, 480, 100
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def variant(query, stream):
-    return f"{query}_hit_streamed" if stream else f"{query}_hit"
 
 
 @contextlib.contextmanager
@@ -210,28 +207,42 @@ def check_any(ik, label, coeffs, phi, tmax, bounds, exact=None,
 
 
 def ms_per_call(fn, calls=TIME_CALLS, rounds=TIME_ROUNDS):
-    """Median over `rounds` of the CUDA-event time of `calls` back-to-back
-    calls divided by `calls`, after two warm-up calls. The operands are
-    built before; back to back, the wrapper's host work overlaps the
-    previous launch, so the time is the kernel's (with the schedule the
-    wrapper builds for it)."""
-    import torch
-    fn()
-    fn()
-    times = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / calls)
-    return statistics.median(times)
+    """utils/kernel_timing.ms_per_call: median over `rounds` of the
+    CUDA-event time of `calls` back-to-back calls divided by `calls`. The
+    operands are built before; back to back, the wrapper's host work
+    overlaps the previous launch, so the time is the kernel's (with the
+    schedule the wrapper builds for it)."""
+    from tracer_tpu_torch.utils import kernel_timing
+    return kernel_timing.ms_per_call(fn, calls, rounds)
 
 
-def phase_kernels(ik, intersect, s, device, errs):
+def shared_loads(path):
+    """Shared-memory load instructions (LDS, by width) of each kernel in
+    cuobjdump -sass of the library at `path`: {kernel: {opcode: count}}.
+    Loops are counted once per copy the compiler emitted (K2's scan loop
+    twice: the g = 1 and g > 1 walks each inline it)."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
+                          "-sass", path], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((f"{k}_kernel" for k in VARIANTS + ("approx_reciprocal",)
+                        if f"{k}_kernel" in m.group(1)), m.group(1))
+            if "ILb1E" in m.group(1):
+                cur += " (stats on)"
+            counts[cur] = {}
+            continue
+        m = re.search(r"\b(LDS(?:\.[A-Z0-9]+)*)\b", line)
+        if m and cur and "@!PT" not in line:  # not a never-issued filler
+            counts[cur][m.group(1)] = counts[cur].get(m.group(1), 0) + 1
+    return counts
+
+
+def phase_kernels(ik, intersect, s, device, errs, card):
     import numpy as np
     import torch
     from tracer_tpu_torch.ops import shapes
@@ -292,10 +303,10 @@ def phase_kernels(ik, intersect, s, device, errs):
             for max_sched in (ik.MAX_SCHED, 3):
                 kw = {"stream": stream, "max_sched": max_sched}
                 tag = f"{label} stream={stream} max_sched={max_sched}"
-                upd(variant("closest", stream),
+                upd(ik.variant_name("closest", stream),
                     check_closest(ik, tag, rd.coeffs, phi_r, tm,
                                   rd.chunk_bounds, exact=nan_lanes, **kw))
-                upd(variant("any", stream),
+                upd(ik.variant_name("any", stream),
                     check_any(ik, tag, rd.coeffs, phi_r, tm, rd.chunk_bounds,
                               exact=nan_lanes, **kw))
 
@@ -318,20 +329,26 @@ def phase_kernels(ik, intersect, s, device, errs):
     if bad.any() or t_bad.any() or ok[nan_lanes].any():
         raise AssertionError("closest_hit disagrees with the brute-force oracle")
 
-    # timing at the Cornell shapes: closest on first-bounce rays, any on 2N
-    times = {
-        "closest_hit": (
-            ms_per_call(lambda: ik.closest_hit(co, phi_bnc, hi, cb)),
-            ms_per_call(lambda: ik.closest_hit_ref(co, phi_bnc, hi, cb))),
-        "any_hit": (
-            ms_per_call(lambda: ik.any_hit(co, phi_sh, st, cb)),
-            ms_per_call(lambda: ik.any_hit_ref(co, phi_sh, st, cb))),
-    }
-    for k, (ms, plain) in times.items():
-        log("kernels", f"time {k} at the Cornell shapes: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms (median of {TIME_ROUNDS} rounds of "
-            f"{TIME_CALLS} back-to-back calls, lanes "
-            f"{phi_bnc.shape[1] if k == 'closest_hit' else phi_sh.shape[1]})")
+    # timing and bounds at the Cornell shapes, where the main path
+    # launches K1 and K3: closest on first-bounce rays, any on 2N
+    from tracer_tpu_torch.utils import kernel_timing
+    cornell = {}
+    for k, query, phi, tm in (("closest_hit", "closest", phi_bnc, hi),
+                              ("any_hit", "any", phi_sh, st)):
+        t = kernel_timing.kernel_times(query, co, phi, tm, cb, False)
+        ref = ik.closest_hit_ref if query == "closest" else ik.any_hit_ref
+        t["plain_ms"] = ms_per_call(lambda: ref(co, phi, tm, cb))
+        t["bound_ms"], t["bound_by"] = query_bound(
+            ik, query, f"{k} at the Cornell shapes", co, cb, phi, tm, card,
+            phase="kernels")
+        log("kernels", f"time {k} at the Cornell shapes: wrapper "
+            f"{t['ms']:.4f} ms, launch alone {t['alone_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}) (median of {TIME_ROUNDS} rounds of "
+            f"{TIME_CALLS} back-to-back calls, {phi.shape[1]} lanes, on "
+            f"{card})")
+        cornell[k] = t
+    return cornell
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +547,8 @@ def check_all_variants(ik, intersect, label, dense, phi, tmax, query, errs,
         for perm in perms:
             tag = (f"{label} stream={stream} perm={perm} "
                    f"({sub.shape[0]} of {n} lanes)")
-            name = variant(query, ik.streamed_variant(co.shape[1], stream))
+            name = ik.variant_name(query,
+                                   ik.streamed_variant(co.shape[1], stream))
             before = ik.launches[name]
             if query == "closest":
                 bt, bi = intersect.closest_hit_phi(dense, tmax, phi,
@@ -547,15 +565,15 @@ def check_all_variants(ik, intersect, label, dense, phi, tmax, query, errs,
     return ref
 
 
-def phase_big_kernels(T, ik, intersect, device, errs):
+def phase_big_kernels(ik, intersect, device, errs):
     """(1) all four kernels on subdivide(cornell_like, 5) and on
     cornell-sub6 at the main path's 512x512 shapes. Returns the states."""
     from tracer_tpu_torch.ops import shapes
     from tracer_tpu_torch.utils import kernel_cases as kc
+    from tracer_tpu_torch.utils import kernel_timing
     states = {}
     for levels in (RESIDENT_LEVELS, SLICE_LEVELS):
-        s = T.init(0, SIZE, SIZE, 0, *cornell_sub(levels),
-                   cam_origin=CAM_ORIGIN, device=device)
+        s = kernel_timing.sub_state(levels, SIZE, device)
         dense = s.scene.accel
         n_chunks = dense.chunk_bounds.shape[0]
         t_pad = dense.coeffs.shape[1]
@@ -650,7 +668,7 @@ def bound(bytes_moved, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def query_bound(ik, query, label, co, cb, phi, tmax, card):
+def query_bound(ik, query, label, co, cb, phi, tmax, card, phase="bigscene"):
     """The bound of one closest- or any-hit call on these inputs: coeffs,
     chunk bounds, features and tmax read once, the outputs (8 B or 1 B a
     lane) written once; operations: the tests the kernel's own answer
@@ -675,7 +693,7 @@ def query_bound(ik, query, label, co, cb, phi, tmax, card):
     moved = 4 * (co.numel() + cb.numel() + phi.numel() + tmax.numel()) \
         + out_bytes * n
     ms, by = bound(moved, flops)
-    log("bigscene", f"bound {label}: {moved / 1e6:.2f} MB moved "
+    log(phase, f"bound {label}: {moved / 1e6:.2f} MB moved "
         f"({1e3 * moved / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s), {tests} "
         f"needed tests ({what}) = {tests / n:.1f} per lane = "
         f"{flops / 1e9:.2f} GFLOP ({1e3 * flops / F32_FLOPS_PER_S:.4f} ms at "
@@ -684,22 +702,19 @@ def query_bound(ik, query, label, co, cb, phi, tmax, card):
     return ms, by
 
 
-def phase_big_timing(ik, intersect, s, card):
+def phase_big_timing(ik, s, card):
     """(5) each of the four kernels on cornell-sub6's first-bounce rays
     (closest) and 2N shadow lanes (any), on the lanes as the main path
-    orders them (perm="auto": odmorton), beside the plain version and the
-    bound on the same inputs."""
+    orders them (perm="auto": odmorton), wrapper call and launch alone,
+    beside the plain version and the bound on the same inputs; K2's
+    in-kernel counts against the plain model of its cull, and K2 against
+    K1 on the same rays."""
     from tracer_tpu_torch.ops import shapes
-    from tracer_tpu_torch.utils import kernel_cases as kc
+    from tracer_tpu_torch.utils import kernel_timing
     dense = s.scene.accel
     co, cb = dense.coeffs, dense.chunk_bounds
-    _, (bo, bd), (so, sd, st) = kc.render_rays(s)
     hi = shapes.F32_HIGHEST
-    phi_b = intersect.ray_features_t(bo, bd)
-    phi_s = intersect.ray_features_t(so, sd)
-    idx_b = intersect.lane_order(phi_b, hi, cb, "odmorton")
-    idx_s = intersect.lane_order(phi_s, st, cb, "odmorton", dead_first=True)
-    phi_b, phi_s, st = phi_b[:, idx_b], phi_s[:, idx_s], st[idx_s]
+    phi_b, phi_s, st = kernel_timing.timed_rays(s)
     plain = {
         "closest": ms_per_call(lambda: ik.closest_hit_ref(co, phi_b, hi, cb),
                                calls=1, rounds=3),
@@ -717,28 +732,57 @@ def phase_big_timing(ik, intersect, s, card):
                f"odmorton order, dead lanes first"}
     times = {}
     for stream in (False, True):
-        for query, call in (
-                ("closest", lambda: ik.closest_hit(co, phi_b, hi, cb,
-                                                   stream=stream)),
-                ("any", lambda: ik.any_hit(co, phi_s, st, cb,
-                                           stream=stream))):
-            times[variant(query, stream)] = {
-                "ms": ms_per_call(call), "plain_ms": plain[query],
-                "bound_ms": bounds[query][0], "bound_by": bounds[query][1],
-                "library_ms": None, "timed_at": shapes_of[query]}
+        for query, phi, tm in (("closest", phi_b, hi), ("any", phi_s, st)):
+            times[ik.variant_name(query, stream)] = {
+                **kernel_timing.kernel_times(query, co, phi, tm, cb, stream),
+                "plain_ms": plain[query], "bound_ms": bounds[query][0],
+                "bound_by": bounds[query][1], "library_ms": None,
+                "timed_at": shapes_of[query]}
     for k, t in times.items():
-        log("bigscene", f"time {k}: kernel {t['ms']:.4f} ms (median of "
-            f"{TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back calls, the "
-            f"wrapper's schedule build included), plain {t['plain_ms']:.4f} "
-            f"ms (median of 3 single calls), bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}), {t['timed_at']}, on {card}")
+        log("bigscene", f"time {k}: wrapper {t['ms']:.4f} ms (schedule "
+            f"built in the call), launch alone {t['alone_ms']:.4f} ms "
+            f"(median of {TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back "
+            f"calls), plain {t['plain_ms']:.4f} ms (median of 3 single "
+            f"calls), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{t['timed_at']}, on {card}")
+    k2, k4 = times["closest_hit_streamed"], times["any_hit_streamed"]
+    log("bigscene", f"K2 wrapper / alone {k2['ms']:.4f} / "
+        f"{k2['alone_ms']:.4f} ms and K4 {k4['ms']:.4f} / "
+        f"{k4['alone_ms']:.4f} ms, beside the wrapper times 61.3789 / "
+        f"21.7626 ms of the block-granular K2 and of K4 before it (NVIDIA "
+        f"H100 80GB HBM3, 700.00 W)")
+
+    sc = kernel_timing.k2_scans(co, phi_b, hi, cb)
+    lo, up = sc["warp_model_per_lane"]
+    blo, bup = sc["block256_model_per_lane"]
+    log("bigscene", f"K2 counts ({ik.STREAMED_CLOSEST_BLOCK}-lane blocks, "
+        f"{sc['lanes']} first-bounce rays): {sc['warp_scans']} warp scans "
+        f"= {sc['scanned_per_lane']:.1f} scanned tests per lane; plain model "
+        f"of the warp cull {lo:.1f} (at the final best t) .. {up:.1f} (at "
+        f"tmax); block-granular cull at 256 lanes {blo:.1f} .. {bup:.1f}; "
+        f"needed {sc['needed_per_lane']:.1f}; the block-granular K2's reach "
+        f"53.40 of 59 "
+        f"superchunks = {53.40 * 6 * 256:.0f} per lane; chunks copied "
+        f"{sc['copies']} = {sc['copies_per_block']:.2f} per block, schedule "
+        f"entries {sc['entries_per_block']:.2f} per block")
+    if not (lo <= sc["scanned_per_lane"] <= up and up <= bup
+            and sc["scanned_per_lane"] < 53.40 * 6 * 256):
+        raise AssertionError("K2's scans fall outside the plain model's "
+                             "bracket")
+    cmp = kernel_timing.k2_vs_k1(co, phi_b, hi, cb)
+    log("bigscene", f"K2 against K1 on {cmp['lanes']} first-bounce rays: "
+        f"best_t differs in bits on {cmp['best_t_bits_differ']} lanes, "
+        f"best_i on {cmp['best_i_differ']} ({cmp['best_i_differ_outside_ties']}"
+        f" outside the {REL:g} tie band)")
+    if cmp["best_t_bits_differ"] or cmp["best_i_differ_outside_ties"]:
+        raise AssertionError("K2 and K1 disagree on cornell-sub6")
     return times
 
 
 def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
                    cornell_mean):
     import torch
-    states = phase_big_kernels(T, ik, intersect, device, errs)
+    states = phase_big_kernels(ik, intersect, device, errs)
     del states[RESIDENT_LEVELS]
     torch.cuda.empty_cache()
     phase_big_check(ik, intersect, device, errs)
@@ -770,7 +814,7 @@ def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
                     phase="bigscene")
     schedule_stats(ik, intersect, s)
     # (5) timing of the four kernels at cornell-sub6's shapes
-    return launches, phase_big_timing(ik, intersect, s, card)
+    return launches, phase_big_timing(ik, s, card)
 
 
 # ---------------------------------------------------------------------------
@@ -778,12 +822,14 @@ def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
 
 def phase_recip(device, card):
     """K5's entry point at the probe's n = 2^20 on the card, with the
-    counts set to 0 before it; then K5 against its plain version, and K5,
-    torch.reciprocal (the library yardstick) and the plain version timed
-    at 2^20 (8 MB, inside the 50 MB L2) and 2^26 (512 MB, past it)."""
+    counts set to 0 before it; then K5 against its plain version on its
+    ragged cases (2^20 + 1, 2^20 + 3, x[1:]), and K5, torch.reciprocal (the
+    library yardstick) and the plain version timed at 2^20 (8 MB, inside
+    the 50 MB L2) and 2^26 (512 MB, past it), with the host microseconds
+    per call of K5 and of torch.reciprocal."""
     import torch
     from tracer_tpu_torch.ops import recip
-    from tracer_tpu_torch.utils import measure_recip
+    from tracer_tpu_torch.utils import kernel_timing, measure_recip
     recip.reset_counts()
     res = measure_recip.measure(RECIP_SIZES[0], device)
     launches = recip.launches[recip.NAME]
@@ -797,6 +843,20 @@ def phase_recip(device, card):
         raise AssertionError("measure_recip did not launch K5 once")
     if not res["max_rel"] <= min(recip.APPROX_RECIP_REL, recip.RCP_APPROX_REL):
         raise AssertionError("K5's error exceeds RCP_APPROX_REL")
+    ragged = torch.as_tensor(measure_recip.inputs(RECIP_SIZES[0] + 3),
+                             device=device)
+    for label, x in (("2^20 + 1", ragged[:-2]), ("2^20 + 3", ragged),
+                     ("x[1:] of 2^20 + 3", ragged[1:])):
+        y, ref = recip.approx_reciprocal(x), recip.approx_reciprocal_ref(x)
+        torch.cuda.synchronize()
+        rel = float(((y.double() - ref.double()) / ref.double()).abs().max())
+        log("recip", f"K5 at n = {label} (data_ptr % 16 = "
+            f"{x.data_ptr() % 16}): max rel {rel:.3e} against its plain "
+            f"version")
+        if not rel <= recip.RCP_APPROX_REL:
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"{label}")
+    del ragged
     x20 = torch.as_tensor(measure_recip.inputs(RECIP_SIZES[0]), device=device)
     out = {"launches": launches, "max_abs_err": 0.0}
     for n in RECIP_SIZES:
@@ -811,15 +871,29 @@ def phase_recip(device, card):
              "library_ms": ms_per_call(lambda: torch.reciprocal(x)),
              "plain_ms": ms_per_call(lambda: recip.approx_reciprocal_ref(x))}
         t["bound_ms"], t["bound_by"] = bound(8 * n, 0)
+        host = {"K5": kernel_timing.host_us_per_call(
+                    lambda: recip.approx_reciprocal(x), 500),
+                "torch.reciprocal": kernel_timing.host_us_per_call(
+                    lambda: torch.reciprocal(x), 500)}
+        t["graph_ms"] = kernel_timing.graph_ms_per_call(
+            lambda: recip.approx_reciprocal(x))
+        t["library_graph_ms"] = kernel_timing.graph_ms_per_call(
+            lambda: torch.reciprocal(x))
         log("recip", f"n=2^{n.bit_length() - 1}: K5 {t['ms']:.4f} ms, "
             f"torch.reciprocal {t['library_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (8 B x n "
             f"at 3.35 TB/s), roofline share "
-            f"{100 * t['bound_ms'] / t['ms']:.1f}%; vs plain: max rel {rel:.3e}, max abs {abs_err:.3e} "
-            f"(median of {TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back "
-            f"calls, on {card})")
+            f"{100 * t['bound_ms'] / t['ms']:.1f}%; vs plain: max rel "
+            f"{rel:.3e}, max abs {abs_err:.3e} (median of {TIME_ROUNDS} "
+            f"rounds of {TIME_CALLS} back-to-back calls, on {card}); host "
+            f"per call: K5 {host['K5']:.2f} us, torch.reciprocal "
+            f"{host['torch.reciprocal']:.2f} us (host clock over 500 queued "
+            f"calls, before one synchronise); device alone (20 calls in one "
+            f"CUDA graph): K5 {t['graph_ms']:.4f} ms, torch.reciprocal "
+            f"{t['library_graph_ms']:.4f} ms")
         if n == RECIP_SIZES[0]:
-            out.update(t, max_abs_err=abs_err,
+            out.update(t, max_abs_err=abs_err, host_us=host["K5"],
+                       library_host_us=host["torch.reciprocal"],
                        timed_at=f"n = 2^20 f32, the probe's inputs")
     return out
 
@@ -991,7 +1065,8 @@ def main():
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
-    card = card_line()
+    from tracer_tpu_torch.utils import kernel_timing
+    card = kernel_timing.card_line()
     log("device", f"torch.cuda: {torch.cuda.get_device_name(0)}; "
         f"count={torch.cuda.device_count()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -1004,6 +1079,8 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build", line.strip())
+    for k, c in shared_loads(info["path"]).items():
+        log("build", f"cuobjdump -sass {k}: shared-memory loads {c}")
 
     errs = dict.fromkeys(VARIANTS, 0.0)
     scene_arrays, scene_name = load_cornell()
@@ -1012,7 +1089,7 @@ def main():
     log("kernels", f"scene {scene_name}: {s.scene.tris.shape[0]} triangles, "
         f"{s.scene.accel.chunk_bounds.shape[0]} chunk(s) of "
         f"{s.scene.accel.coeffs.shape[1] // s.scene.accel.chunk_bounds.shape[0]}")
-    phase_kernels(ik, intersect, s, device, errs)
+    cornell = phase_kernels(ik, intersect, s, device, errs, card)
     del s
     s, launches, cornell_mean = phase_main(T, integrator, ik, scene_arrays,
                                            card, device)
@@ -1032,11 +1109,13 @@ def main():
     log("lidar", f"capture launches {lidar_launches}")
 
     fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-              "bound_by", "library_ms", "timed_at")
+              "bound_by", "library_ms", "timed_at", "host_us",
+              "library_host_us", "graph_ms", "library_graph_ms")
     kernels = [{"name": f"{k}_kernel", "route": "cuda",
                 "source": "tracer_tpu_torch/csrc/intersect.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": errs[k], **times[k]}
+                "max_abs_err": errs[k], **times[k],
+                **{f"cornell_{f}": v for f, v in cornell.get(k, {}).items()}}
                for k in VARIANTS]
     kernels.append({"name": "approx_reciprocal_kernel", "route": "cuda",
                     "source": "tracer_tpu_torch/csrc/recip.cu",

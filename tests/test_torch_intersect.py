@@ -206,6 +206,26 @@ def test_cpu_tensors_run_plain_versions_only():
                    td.chunk_bounds)
 
 
+def test_stats_and_prepared_launch_need_the_card():
+    """The stats counts and prepared_launch describe a kernel's work: a
+    CPU call with stats raises, as does prepared_launch on CPU tensors or
+    with an unknown query, and no count moves."""
+    _, jd, o, d = _case("chunks5")
+    td = _dense_t(jd)
+    phi = tint.ray_features_t(_v3t(o), _v3t(d))
+    ik.reset_counts()
+    with pytest.raises(ValueError):
+        ik.closest_hit(td.coeffs, phi, 1e30, td.chunk_bounds, stream=True,
+                       stats=torch.zeros(2, dtype=torch.int64))
+    for query in ("closest", "any", "nearest"):
+        with pytest.raises(ValueError):
+            ik.prepared_launch(query, td.coeffs, phi, 1e30, td.chunk_bounds)
+    assert ik.launches == dict.fromkeys(ik.VARIANTS, 0)
+    assert ik.plain_calls == dict.fromkeys(ik.VARIANTS, 0)
+    assert ik.variant_name("closest", True) == "closest_hit_streamed"
+    assert ik.BLOCKS["closest_hit_streamed"] == ik.STREAMED_CLOSEST_BLOCK
+
+
 @pytest.mark.parametrize("bad", [
     {"stream": 1}, {"stream": "auto"}, {"max_sched": 0}, {"max_sched": 65},
     {"max_sched": 2.0}, {"perm": "bogus"}, {"perm": "on"}])
@@ -304,3 +324,56 @@ def test_kernels_match_plain_on_card(name, variant, cuda_device):
         torch.testing.assert_close(bt[both], rt[both], rtol=1e-5, atol=0)
         same = both & ~tie
         assert torch.equal(bi[same], ri[same])
+
+
+def _sub5_case(device):
+    """subdivide(cornell_like, 5) (22,528 triangles, 88 chunks) at 64x64:
+    first-bounce rays."""
+    import tracer_tpu_torch as T
+    from tracer_tpu_torch.utils import testscenes as ts
+    tris, tm, mats = ts.cornell_like()
+    tris, tm = ts.subdivide(tris, tm, levels=5)
+    s = T.init(0, 64, 64, 0, tris, tm, mats, cam_origin=(0.0, 0.8, 1.8),
+               device=device)
+    _, (bo, bd), _ = kc.render_rays(s)
+    return s.scene.accel, tint.ray_features_t(bo, bd)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["random5_max_sched3", "sub5_streamed"])
+def test_streamed_closest_matches_plain_on_card(case, cuda_device):
+    """K2 (warp-granular cull, triangle-major stage) against the plain
+    version: hits and best t within rtol 1e-5, best_i outside ties; its
+    stats within the plain model's bracket (kernel_cases.cull_pairs)."""
+    if case == "random5_max_sched3":
+        _, jd, o, d = _case("chunks5")
+        td = _dense_t(jd).to(cuda_device)
+        co, cb = td.coeffs, td.chunk_bounds
+        phi = tint.ray_features_t(_v3t(o).to(cuda_device),
+                                  _v3t(d).to(cuda_device))
+        max_sched = 3
+    else:
+        dense, phi = _sub5_case(cuda_device)
+        co, cb, max_sched = dense.coeffs, dense.chunk_bounds, ik.MAX_SCHED
+    hi = torch.as_tensor(1e30, dtype=torch.float32, device=cuda_device)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    before = ik.launches["closest_hit_streamed"]
+    bt, bi = ik.closest_hit(co, phi, hi, cb, stream=True,
+                            max_sched=max_sched, stats=stats)
+    rt, ri = ik.closest_hit_ref(co, phi, hi, cb)
+    torch.cuda.synchronize()
+    assert ik.launches["closest_hit_streamed"] == before + 1
+    edge, tie = kc.boundary_lanes(co, phi, hi, cb)
+    keep = ~edge
+    assert torch.equal(torch.isfinite(bt)[keep], torch.isfinite(rt)[keep])
+    both = keep & torch.isfinite(bt) & torch.isfinite(rt)
+    torch.testing.assert_close(bt[both], rt[both], rtol=1e-5, atol=0)
+    assert torch.equal(bi[both & ~tie], ri[both & ~tie])
+    block = ik.STREAMED_CLOSEST_BLOCK
+    g, _, order, count = ik.walk_schedule(phi, hi, cb, max_sched, block)
+    least = kc.cull_pairs(phi, torch.minimum(bt, hi), cb, g, order, count,
+                          block)
+    most = kc.cull_pairs(phi, hi.expand(bt.shape), cb, g, order, count,
+                         block)
+    assert int(least.sum()) <= int(stats[1]) <= int(most.sum())
+    assert 0 < int(stats[0]) <= order.shape[0] * cb.shape[0]

@@ -66,6 +66,19 @@ def test_wrapper_dispatch():
     assert recip.plain_calls == {recip.NAME: 1}
 
 
+@pytest.mark.parametrize("view", ["odd_length", "offset"])
+def test_ragged_inputs_dispatch_to_the_plain_version(view):
+    """An odd length and an offset view (x[1:], not 16-byte aligned) on
+    the CPU go to the plain version and equal torch.reciprocal."""
+    recip.reset_counts()
+    x = torch.as_tensor(measure_recip.inputs(1027))
+    x = x[:1021] if view == "odd_length" else x[1:]
+    y = recip.approx_reciprocal(x)
+    assert y.shape == x.shape and torch.equal(y, torch.reciprocal(x))
+    assert recip.plain_calls == {recip.NAME: 1}
+    assert recip.launches == {recip.NAME: 0}
+
+
 def test_measure_recip_cli_on_cpu(capsys):
     measure_recip.main(["512", "--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip())
@@ -94,3 +107,22 @@ def test_kernel_matches_plain_on_card(cuda_device):
         recip.approx_reciprocal(x[::2])
     got = measure_recip.measure(1 << 20, device=cuda_device)
     assert got["kernel"] is True and got["max_rel"] <= recip.RCP_APPROX_REL
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["1", "3", "2^20+3", "offset"])
+def test_ragged_kernel_matches_plain_on_card(case, cuda_device):
+    """The kernel's scalar head and tail: lengths 1, 3 and 2^20 + 3, and
+    the offset view x[1:] of 2^20 + 1 elements, within RCP_APPROX_REL of
+    the plain version on every element."""
+    n = {"1": 1, "3": 3, "2^20+3": (1 << 20) + 3, "offset": (1 << 20) + 1}
+    x = torch.as_tensor(measure_recip.inputs(n[case]), device=cuda_device)
+    if case == "offset":
+        x = x[1:]
+    before = recip.launches[recip.NAME]
+    y = recip.approx_reciprocal(x)
+    ref = recip.approx_reciprocal_ref(x)
+    torch.cuda.synchronize()
+    assert recip.launches[recip.NAME] == before + 1 and y.shape == x.shape
+    rel = ((y.double() - ref.double()).abs() / ref.double().abs()).max()
+    assert float(rel) <= recip.RCP_APPROX_REL

@@ -22,6 +22,9 @@ from tracer_tpu_torch.utils import testscenes
 torch.set_num_threads(2)
 
 TILE = ik.BLOCK
+# the tiles the kernels' schedules are built at: 256 lanes (K1, K3, K4),
+# K2's block, and 128
+TILES = sorted({ik.BLOCK, ik.STREAMED_CLOSEST_BLOCK, 128})
 
 
 def _chunks5():
@@ -36,15 +39,15 @@ def _chunks5():
     return jd, phi_j, torch.as_tensor(np.array(phi_j))
 
 
-def _jax_order(phi_j, tmax, sbounds_j):
+def _jax_order(phi_j, tmax, sbounds_j, tile=TILE):
     """pk._tile_chunk_order on inputs padded as _pad_inputs pads them."""
     n = phi_j.shape[1]
-    n_pad = -(-n // TILE) * TILE
+    n_pad = -(-n // tile) * tile
     phi = jnp.pad(phi_j, ((0, 6), (0, n_pad - n)))
     tmv = jnp.pad(jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (n,)),
                   (0, n_pad - n))[None, :]
-    order, count = pk._tile_chunk_order(phi, tmv, sbounds_j, n_pad // TILE,
-                                        TILE)
+    order, count = pk._tile_chunk_order(phi, tmv, sbounds_j, n_pad // tile,
+                                        tile)
     return np.asarray(order), np.asarray(count)
 
 
@@ -56,11 +59,13 @@ def test_superchunk_bounds_matches_jax(g):
         got.numpy(), np.asarray(pk._superchunk_bounds(jd.chunk_bounds, g)))
 
 
+@pytest.mark.parametrize("tile", TILES)
 @pytest.mark.parametrize("tmax_kind", ["scalar", "per_lane"])
 @pytest.mark.parametrize("max_sched", [64, 3])
-def test_tile_chunk_order_matches_jax(max_sched, tmax_kind):
+def test_tile_chunk_order_matches_jax(max_sched, tmax_kind, tile):
     """g = 1 (5 chunks) and g = 2 (MAX_SCHED 3: 3 superchunks, the last
-    one padded); count exactly, order exactly or where keys tie."""
+    one padded), at 256-lane tiles and at K2's narrower tile; count
+    exactly, order exactly or where keys tie."""
     jd, phi_j, phi = _chunks5()
     n = phi.shape[1]
     tmax = (np.float32(1e30) if tmax_kind == "scalar" else
@@ -69,20 +74,21 @@ def test_tile_chunk_order_matches_jax(max_sched, tmax_kind):
                      ).astype(np.float32))
     cb = torch.as_tensor(np.array(jd.chunk_bounds))
     g, sb, order, count = ik.walk_schedule(phi, torch.as_tensor(tmax), cb,
-                                           max_sched)
+                                           max_sched, tile)
     assert g == (1 if max_sched == 64 else 2)
+    assert order.shape[0] == -(-n // tile)
     sb_j = (jd.chunk_bounds if g == 1
             else pk._superchunk_bounds(jd.chunk_bounds, g))
     np.testing.assert_array_equal(sb.numpy(), np.asarray(sb_j))
-    order_j, count_j = _jax_order(phi_j, tmax, sb_j)
+    order_j, count_j = _jax_order(phi_j, tmax, sb_j, tile)
     np.testing.assert_array_equal(count.numpy(), count_j)
     # the keys themselves, to excuse reorderings among equal entries
-    n_pad = order.shape[0] * TILE
+    n_pad = order.shape[0] * tile
     keys = ik._tile_entry(
         torch.nn.functional.pad(phi[:6], (0, n_pad - n)),
         torch.nn.functional.pad(torch.as_tensor(tmax).expand(n),
                                 (0, n_pad - n)),
-        sb, order.shape[0], TILE).T.numpy()
+        sb, order.shape[0], tile).T.numpy()
     ot = order.numpy()
     for tile in range(ot.shape[0]):
         c = count_j[tile]
@@ -144,6 +150,66 @@ def test_schedule_holds_every_winner(max_sched):
         assert bool(listed.any(dim=1).all())
         if camera:  # coherent rays: some tile leaves (super)chunks out
             assert int(count.min()) < order.shape[1]
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("max_sched", [64, 8])
+def test_warp_cull_model_reaches_every_winner(max_sched, tile):
+    """kernel_cases.cull_pairs, the plain model of K2's warp-granular
+    cull, on subdivide(cornell_like, 4) at 32x32 (camera and first-bounce
+    rays): at tmax, the chunk that holds each lane's winner is reached by
+    the lane's warp; the pairs at the final best t are a subset of those
+    at tmax; and warps scan no more (lane, triangle) tests than blocks."""
+    s = _sub4_state(32)
+    dense = s.scene.accel
+    cb = dense.chunk_bounds
+    chunk_t = dense.coeffs.shape[1] // cb.shape[0]
+    hi = torch.as_tensor(shapes.F32_HIGHEST, dtype=torch.float32)
+    (o, d), (bo, bd), _ = kc.render_rays(s)
+    for oo, dd in ((o, d), (bo, bd)):
+        phi = tint.ray_features_t(oo, dd)
+        bt, bi = ik.closest_hit_ref(dense.coeffs, phi, hi, cb)
+        g, _, order, count = ik.walk_schedule(phi, hi, cb, max_sched, tile)
+        top = hi.expand(bt.shape)
+        most = kc.cull_pairs(phi, top, cb, g, order, count, tile)
+        least = kc.cull_pairs(phi, torch.minimum(bt, hi), cb, g, order,
+                              count, tile)
+        blocks = kc.cull_pairs(phi, top, cb, g, order, count, tile,
+                               group=tile)
+        assert most.shape == (-(-phi.shape[1] // tile) * tile // 32,
+                              cb.shape[0])
+        lanes = torch.nonzero(torch.isfinite(bt))[:, 0]
+        assert lanes.numel() > phi.shape[1] // 2
+        assert bool(most[lanes // 32, bi[lanes].long() // chunk_t].all())
+        assert bool((least <= most).all()) and int(least.sum()) > 0
+        assert 32 * int(most.sum()) <= tile * int(blocks.sum())
+
+
+@pytest.mark.parametrize("max_sched", [64, 3])
+def test_block_cull_pairs_are_the_schedule_reach(max_sched):
+    """At tmax and one group per tile, cull_pairs is the schedule's own
+    reach: a (tile, chunk) pair passes exactly where some lane of the
+    tile enters the chunk's box (a finite _tile_entry key) and its
+    superchunk is scheduled; per-lane tmax with dead lanes and the
+    on-plane rays of _chunks5."""
+    jd, _, phi = _chunks5()
+    n = phi.shape[1]
+    tmax = torch.as_tensor(np.where(np.arange(n) % 3 == 0, 0.0, 4.0)
+                           .astype(np.float32))
+    cb = torch.as_tensor(np.array(jd.chunk_bounds))
+    g, _, order, count = ik.walk_schedule(phi, tmax, cb, max_sched)
+    got = kc.cull_pairs(phi, tmax, cb, g, order, count, TILE, group=TILE)
+    n_pad = order.shape[0] * TILE
+    keys = ik._tile_entry(
+        torch.nn.functional.pad(phi[:6], (0, n_pad - n)),
+        torch.nn.functional.pad(tmax, (0, n_pad - n)), cb, order.shape[0],
+        TILE).T
+    listed = torch.zeros_like(keys, dtype=torch.bool)
+    for tile in range(order.shape[0]):
+        for si in order[tile, :count[tile]].tolist():
+            listed[tile, si * g:(si + 1) * g] = True
+    assert torch.equal(got, torch.isfinite(keys) & listed)
+    assert bool(got.any())
 
 
 @pytest.mark.parametrize("mode", ["oct", "dmorton", "odmorton"])

@@ -77,12 +77,14 @@ def load() -> ctypes.CDLL:
 
 
 def build_info() -> dict:
-    """Seconds the last load() took (0 before it ran), nvcc's log and the
-    sources it compiled."""
+    """Seconds the last load() took (0 before it ran), nvcc's log, the
+    sources it compiled and the library's path (None before it ran)."""
     return {"seconds": _Built.seconds, "log": _Built.log,
-            "sources": [p.name for p in sources()]}
+            "sources": [p.name for p in sources()],
+            "path": None if _Built.lib is None else _Built.lib._name}
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on `device`, for a kernel's launch."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device `index`, for
+    a kernel's launch, without building a torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)

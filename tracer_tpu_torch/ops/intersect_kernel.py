@@ -14,16 +14,17 @@ storage order.
 Each wrapper has two variants, as the TPU package has: resident (K1, K3:
 each visited chunk staged synchronously in shared memory) and streamed
 (K2, K4: two shared-memory slots, the next chunk copied while the current
-one is scanned). stream=None takes the streamed variant when T_pad >
+one is scanned; K2 culls per warp and reads a triangle's coefficients
+with 128-bit loads). stream=None takes the streamed variant when T_pad >
 STREAM_MIN_T_PAD, the TPU package's own switch point, so that both
-packages take the same variant on the same scene. Both walk the same
-per-tile schedule: superchunks of g = ceil(n_chunks / max_sched)
+packages take the same variant on the same scene. All walk the same kind
+of per-tile schedule: superchunks of g = ceil(n_chunks / max_sched)
 morton-consecutive chunks (superchunk_bounds), in the near-to-far order
-of tile_chunk_order, built per CUDA block of BLOCK lanes. A one-chunk
-scene gets no schedule and the kernel walks its chunk under the block
-cull. The schedule only skips chunks no lane can reach, so every variant
-gives the plain version's hits and best t (ties in t may pick another
-index).
+of tile_chunk_order, built per CUDA block of the variant's lanes
+(BLOCKS). A one-chunk scene gets no schedule and the kernel walks its
+chunk under the cull. The schedule only skips chunks no lane can reach,
+so every variant gives the plain version's hits and best t (ties in t
+may pick another index).
 
 Dispatch: a tensor on the CPU goes to the plain version (closest_hit_ref,
 any_hit_ref, the chunked exact-f32 form of tracer_tpu/ops/intersect.py);
@@ -42,8 +43,10 @@ import torch
 from tracer_tpu_torch.ops import cuda_lib, shapes
 
 # Lanes per CUDA block: the tile of the chunk schedule (csrc/intersect.cu
-# kBlock, checked at load through kernel_block()).
+# kBlock and kStreamedClosestBlock, checked at load through kernel_block()
+# and streamed_closest_block()).
 BLOCK = 256
+STREAMED_CLOSEST_BLOCK = 64
 # Most schedule entries per tile (tracer_tpu's MAX_SCHED): chunks group
 # into superchunks of g = ceil(n_chunks / max_sched).
 MAX_SCHED = 64
@@ -64,6 +67,8 @@ _SCHED_ELEMS = 1 << 24
 # version) and nowhere else; reset_counts() sets all to 0.
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
+BLOCKS = dict.fromkeys(VARIANTS, BLOCK) | {
+    "closest_hit_streamed": STREAMED_CLOSEST_BLOCK}
 launches = {k: 0 for k in VARIANTS}
 plain_calls = {k: 0 for k in VARIANTS}
 
@@ -81,15 +86,18 @@ def reset_counts() -> None:
 def build() -> ctypes.CDLL:
     """The kernels' library (ops/cuda_lib.load: every csrc source, built
     once per hash of the sources), with the intersection entry points
-    declared and kBlock checked against BLOCK."""
+    declared and each variant's block checked against BLOCKS."""
     lib = cuda_lib.load()
-    lib.kernel_block.argtypes = []
-    lib.kernel_block.restype = ctypes.c_int
-    if lib.kernel_block() != BLOCK:
-        raise RuntimeError(f"csrc/intersect.cu has blocks of "
-                           f"{lib.kernel_block()} lanes, the wrapper {BLOCK}")
+    for fn, want in (("kernel_block", BLOCK),
+                     ("streamed_closest_block", STREAMED_CLOSEST_BLOCK)):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+        if getattr(lib, fn)() != want:
+            raise RuntimeError(f"csrc/intersect.cu {fn}() is "
+                               f"{getattr(lib, fn)()} lanes, the wrapper's "
+                               f"{want}")
     head = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    lib.closest_hit_launch.argtypes = head + [ctypes.c_void_p] * 3
+    lib.closest_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
     lib.closest_hit_launch.restype = ctypes.c_int
     lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 2
     lib.any_hit_launch.restype = ctypes.c_int
@@ -242,16 +250,17 @@ def tile_chunk_order(phi, tmax, bounds, tile_n: int = BLOCK):
     return order.contiguous(), count
 
 
-def walk_schedule(phi, tmax, chunk_bounds, max_sched: int = MAX_SCHED):
-    """What a kernel walks: (g, superchunk bounds, order, count). At
-    g = 1 the superchunks are the chunks; a one-chunk scene gets no
-    schedule (order and count None)."""
+def walk_schedule(phi, tmax, chunk_bounds, max_sched: int = MAX_SCHED,
+                  tile_n: int = BLOCK):
+    """What a kernel walks: (g, superchunk bounds, order, count), the
+    schedule per block of tile_n lanes. At g = 1 the superchunks are the
+    chunks; a one-chunk scene gets no schedule (order and count None)."""
     n_chunks = chunk_bounds.shape[0]
     g = -(-n_chunks // max_sched)
     sbounds = chunk_bounds if g == 1 else superchunk_bounds(chunk_bounds, g)
     if n_chunks == 1:
         return g, sbounds, None, None
-    order, count = tile_chunk_order(phi, tmax, sbounds, BLOCK)
+    order, count = tile_chunk_order(phi, tmax, sbounds, tile_n)
     return g, sbounds, order, count
 
 
@@ -318,61 +327,94 @@ def any_hit_ref(coeffs, phi, tmax, chunk_bounds):
 # ---------------------------------------------------------------------------
 # Dispatching wrappers
 
-def _launch(entry, name, coeffs, phi, tmax, chunk_bounds, n_chunks, chunk_t,
-            streamed, max_sched, outs):
-    """Launch one kernel on CUDA operands, or raise. The schedule's
-    tensors may be freed once the launch is queued: the caching allocator
-    hands their memory only to work queued after it on the same stream."""
+def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
+                    stream=None, max_sched: int = MAX_SCHED, stats=None):
+    """The kernel launch of closest_hit (query "closest") or any_hit
+    ("any") on CUDA operands, with the operands checked and the chunk
+    schedule built now: returns (launch, outs), where each launch() queues
+    the kernel into the tensors outs, adds one to its count and returns
+    outs (N = 0 launches nothing). stats (K2 only): an int64 (2,) tensor
+    on the card to which each launch adds the chunks it copied and the
+    (warp, chunk) scans it ran. The schedule's tensors live as long as
+    launch."""
+    tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
+    name = variant_name(query, streamed)
+    if phi.device.type != "cuda":
+        raise ValueError(f"no intersection kernel for {phi.device}")
+    if stats is not None and (
+            name != "closest_hit_streamed" or stats.dtype != torch.int64
+            or stats.shape != (2,) or stats.device != phi.device):
+        raise ValueError("stats is an int64 (2,) tensor beside phi, for "
+                         "the streamed closest-hit kernel only")
+    n = phi.shape[1]
+    if query == "closest":
+        outs = (torch.empty((n,), dtype=torch.float32, device=phi.device),
+                torch.empty((n,), dtype=torch.int32, device=phi.device))
+        tail = (*outs, stats)
+    else:
+        outs = (torch.empty((n,), dtype=torch.bool, device=phi.device),)
+        tail = outs
+    if not n:
+        return (lambda: outs), outs
+    entry = getattr(build(), f"{query}_hit_launch")
     tmax = _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed)
     g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
-                                             max_sched)
-    err = entry(int(streamed), _ptr(coeffs), _ptr(phi), _ptr(tmax),
-                _ptr(chunk_bounds), _ptr(sbounds), _ptr(order), _ptr(count),
-                phi.shape[1], coeffs.shape[1], n_chunks, chunk_t, g,
-                sbounds.shape[0], *map(_ptr, outs),
-                cuda_lib.stream_ptr(phi.device))
-    if err:
-        raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+                                             max_sched, BLOCKS[name])
+    args = (int(streamed), _ptr(coeffs), _ptr(phi), _ptr(tmax),
+            _ptr(chunk_bounds), _ptr(sbounds), _ptr(order), _ptr(count), n,
+            coeffs.shape[1], n_chunks, chunk_t, g, sbounds.shape[0],
+            *map(_ptr, tail), cuda_lib.raw_stream(phi.device.index))
+
+    # the default argument keeps the tensors behind args' pointers alive
+    def launch(_held=(tmax, sbounds, order, count)):
+        err = entry(*args)
+        if err:
+            raise RuntimeError(f"{name}_kernel launch failed: CUDA error "
+                               f"{err}")
+        launches[name] += 1
+        return outs
+
+    return launch, outs
+
+
+def variant_name(query: str, streamed: bool) -> str:
+    """The kernel's name in launches: closest_hit, any_hit, or either
+    with _streamed."""
+    if query not in ("closest", "any"):
+        raise ValueError(f"query is 'closest' or 'any', got {query!r}")
+    return f"{query}_hit_streamed" if streamed else f"{query}_hit"
 
 
 def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
-                max_sched: int = MAX_SCHED):
+                max_sched: int = MAX_SCHED, stats=None):
     """Closest hit per ray: (best_t (N,) f32, best_i (N,) int32).
     stream: None (streamed above STREAM_MIN_T_PAD), True or False;
-    max_sched: schedule entries per tile, 1..MAX_SCHED."""
-    tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    max_sched: schedule entries per tile, 1..MAX_SCHED; stats: see
+    prepared_launch (a CPU call takes none)."""
+    tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
-    name = "closest_hit_streamed" if streamed else "closest_hit"
     if phi.device.type == "cpu":
-        plain_calls[name] += 1
-        return _closest_plain(coeffs, phi, tmax, n_chunks, chunk_t)
-    if phi.device.type != "cuda":
-        raise ValueError(f"no intersection kernel for {phi.device}")
-    n = phi.shape[1]
-    best_t = torch.empty((n,), dtype=torch.float32, device=phi.device)
-    best_i = torch.empty((n,), dtype=torch.int32, device=phi.device)
-    if n:
-        _launch(build().closest_hit_launch, name, coeffs, phi, tmax,
-                chunk_bounds, n_chunks, chunk_t, streamed, max_sched,
-                (best_t, best_i))
-    return best_t, best_i
+        if stats is not None:
+            raise ValueError("stats counts a kernel's work; the plain "
+                             "version has none")
+        plain_calls[variant_name("closest", streamed)] += 1
+        return _closest_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
+    launch, _ = prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
+                                stream=stream, max_sched=max_sched,
+                                stats=stats)
+    return launch()
 
 
 def any_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
             max_sched: int = MAX_SCHED):
     """Whether any triangle is hit before tmax, per ray: (N,) bool.
     stream and max_sched as for closest_hit."""
-    tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
-    name = "any_hit_streamed" if streamed else "any_hit"
     if phi.device.type == "cpu":
-        plain_calls[name] += 1
-        return _any_plain(coeffs, phi, tmax, n_chunks, chunk_t)
-    if phi.device.type != "cuda":
-        raise ValueError(f"no intersection kernel for {phi.device}")
-    hit = torch.empty((phi.shape[1],), dtype=torch.bool, device=phi.device)
-    if phi.shape[1]:
-        _launch(build().any_hit_launch, name, coeffs, phi, tmax,
-                chunk_bounds, n_chunks, chunk_t, streamed, max_sched, (hit,))
-    return hit
+        plain_calls[variant_name("any", streamed)] += 1
+        return _any_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
+    launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
+                                stream=stream, max_sched=max_sched)
+    return launch()[0]

@@ -7,16 +7,18 @@ plain version.
       kernel uses on the TPU by default
 
 The kernel issues Hopper's approximate reciprocal (rcp.approx.ftz.f32,
-the MUFU unit) per element. It is bound by bytes: 4 B read and 4 B
-written per element against one special-function op, so its bound is
-8 B x n over the card's memory rate. What it is for is the error of the
-instruction, which utils/measure_recip.py measures.
+the MUFU unit) per element, four to a 16-byte access. It is bound by
+bytes: 4 B read and 4 B written per element against one special-function
+op, so its bound is 8 B x n over the card's memory rate. What it is for
+is the error of the instruction, which utils/measure_recip.py measures.
 
 Dispatch: x must be float32. A tensor on the CPU goes to the plain
 version approx_reciprocal_ref, torch.reciprocal, the function the kernel
-approximates; a contiguous CUDA tensor launches the kernel; anything else
-raises. The kernel is built with the others by ops/cuda_lib.py at first
-use.
+approximates; a contiguous CUDA tensor of any length and offset launches
+the kernel; anything else raises. The output is allocated at x's offset
+from a 16-byte boundary, so that the kernel's float4 body covers both.
+The kernel is built with the others by ops/cuda_lib.py at first use; a
+call on the card is the checks, one allocation and the ctypes launch.
 """
 
 from __future__ import annotations
@@ -76,11 +78,16 @@ def approx_reciprocal(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no approximate-reciprocal kernel for {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    y = torch.empty_like(x)
-    if x.numel():
+    n = x.numel()
+    skew = (x.data_ptr() >> 2) & 3  # floats past x's 16-byte boundary
+    if skew:
+        y = torch.empty(n + skew, dtype=x.dtype, device=x.device)[skew:]
+        y = y.view(x.shape)
+    else:
+        y = torch.empty_like(x)
+    if n:
         err = build().approx_reciprocal_launch(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            x.numel(), cuda_lib.stream_ptr(x.device))
+            x.data_ptr(), y.data_ptr(), n, cuda_lib.raw_stream(x.device.index))
         if err:
             raise RuntimeError(f"approx_reciprocal_kernel launch failed: "
                                f"CUDA error {err}")

@@ -10,6 +10,8 @@ Used by tests/test_torch_intersect.py and chip_smoke.py.
   boundary_lanes      lanes where two f32 evaluations may rightly differ
   needed_tests        the (lane, triangle) tests a query needs, for its
                       bound in operations
+  cull_pairs          the (group of lanes, chunk) pairs the kernels' cull
+                      lets through, a plain model of K2's warp-granular scan
 """
 
 from __future__ import annotations
@@ -244,3 +246,69 @@ def needed_tests(phi, bound, chunk_bounds, chunk_t: int, occluded=None,
         hit = _entered(phi, bound, chunk_bounds[i:i + step], occluded is None)
         total += int((hit if free is None else hit & free).sum())
     return total * chunk_t
+
+
+def slab_pass(phi, bound, boxes):
+    """(B, N) bool: csrc/intersect.cu's slab_may_hit of each lane's ray
+    against each box (B, 8) at the lane's bound (N,), f32 operation for
+    operation: d[k] == 0 passes axis k, the far plane is inflated by
+    1 + AABB_EPS, fminf/fmaxf drop a NaN. An empty (inverted) box, and a
+    lane with a NaN feature or bound, which the kernels leave out of the
+    walk, pass nothing."""
+    shape = (boxes.shape[0], phi.shape[1])
+    grow = (torch.tensor(1.0) + torch.tensor(shapes.AABB_EPS)).item()
+    tmin = torch.zeros(shape, device=phi.device)
+    tmx = bound.expand(shape)
+    for k in range(3):
+        par = (phi[k] == 0.0)[None]
+        inv = 1.0 / torch.where(par, 1.0, phi[k][None])
+        t0 = (boxes[:, k, None] - phi[3 + k][None]) * inv
+        t1 = (boxes[:, 3 + k, None] - phi[3 + k][None]) * inv
+        tmin = torch.fmax(tmin, torch.where(par, 0.0, torch.fmin(t0, t1)))
+        tmx = torch.fmin(tmx, torch.where(par, bound[None],
+                                          torch.fmax(t0, t1) * grow))
+    active = ~(torch.isnan(phi).any(dim=0) | torch.isnan(bound))
+    return (tmx > tmin) & active[None] & (boxes[:, 0] <= boxes[:, 3])[:, None]
+
+
+def cull_pairs(phi, bound, chunk_bounds, g: int, order, count, tile_n: int,
+               group: int = 32, batch: int = 1 << 24):
+    """(n_groups, n_chunks) bool: the (group of `group` consecutive lanes,
+    chunk) pairs in which some lane passes the kernels' slab test
+    (slab_pass) at its bound (N,), the chunk's superchunk (chunk // g)
+    being in the group's tile schedule order[tile, :count[tile]] (tiles
+    of tile_n lanes; every superchunk when order is None). Lanes past N
+    pass nothing.
+
+    group = 32 models K2's warp-granular cull: a warp scans a chunk when
+    some lane may hit its box at that lane's current bound. group = tile_n
+    is the block-granular cull of K1, K3 and K4. The kernel's lanes vote
+    at bounds between min(tmax, final best t) and tmax, and the test is
+    monotone in the bound, so the pairs at those two bounds bracket the
+    (warp, chunk) scans K2 runs; the superchunk votes add nothing, as a
+    member's box lies inside its superchunk's."""
+    n = phi.shape[1]
+    n_pad = -(-n // tile_n) * tile_n
+    n_tiles = n_pad // tile_n
+    phi = torch.nn.functional.pad(phi, (0, n_pad - n))
+    bound = torch.nn.functional.pad(
+        torch.as_tensor(bound, dtype=torch.float32,
+                        device=phi.device).expand(n),
+        (0, n_pad - n), value=float("nan"))
+    n_chunks = chunk_bounds.shape[0]
+    n_super = -(-n_chunks // g)
+    if order is None:
+        sched = torch.ones((n_tiles, n_super), dtype=torch.bool,
+                           device=phi.device)
+    else:
+        ranks = torch.arange(n_super, device=phi.device)
+        sched = torch.zeros((n_tiles, n_super), dtype=torch.bool,
+                            device=phi.device).scatter_(
+            1, order.long(), ranks[None, :] < count[:, None])
+    member = torch.arange(n_chunks, device=phi.device) // g
+    listed = sched[:, member].repeat_interleave(tile_n // group, dim=0)
+    step = max(1, batch // n_pad)
+    parts = [slab_pass(phi, bound, chunk_bounds[i:i + step])
+             .reshape(-1, n_pad // group, group).any(dim=2)
+             for i in range(0, n_chunks, step)]
+    return torch.cat(parts).T & listed
