@@ -9,8 +9,10 @@ any failure exits non-zero:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc-builds csrc/intersect.cu and csrc/recip.cu from the
               checkout into one library; counts each kernel's shared-
-              memory load instructions in cuobjdump -sass of it (K2's are
-              those of its scan loop, one triangle per iteration)
+              memory load instructions in cuobjdump -sass of it (those of
+              K2, K3 and K4 are their scan loops', one triangle per
+              iteration: 10 LDS.128 in each copy of the loop the compiler
+              emitted, and no narrower load, or the phase fails)
   3. kernels  the hand kernels against their plain PyTorch versions on
               the card: Cornell camera and first-bounce rays at 512x512,
               a 1,100-triangle 5-chunk random scene with on-plane
@@ -19,7 +21,8 @@ any failure exits non-zero:
               variants), and the brute-force oracle; then each resident
               kernel's median time, wrapper call and launch alone, beside
               its plain version's and its bound at the Cornell shapes,
-              where the main path launches it (CUDA events)
+              where the main path launches it (CUDA events); K3 against
+              K1's hits on every Cornell shadow lane
   4. main     the port's main path: init a 512x512 Cornell box, render
               16 spp (sample_n_frames(s, 17)), 3 x step_render; checks
               the image and that every kernel launched and no plain
@@ -44,9 +47,10 @@ any failure exits non-zero:
               of the four kernels timed at cornell-sub6's shapes, wrapper
               call and launch alone (utils/kernel_timing.py), beside its
               bound (bytes or operations, whichever is larger); K2's
-              in-kernel counts as scanned tests per lane beside the plain
-              model's bracket; K2 against K1 on the same rays (best_t
-              bits, best_i outside the tie band)
+              and K4's in-kernel counts as scanned tests per lane beside
+              the plain model's bracket; K2 against K1 on the same rays
+              (best_t bits, best_i outside the tie band); K3 and K4
+              against K1's hits on all 524,288 shadow lanes
   7. recip    K5: the approximate-reciprocal probe
               (utils/measure_recip.measure) at n = 2^20 on the card, its
               JSON line, max_rel within APPROX_RECIP_REL = 2^-8 and within
@@ -63,7 +67,8 @@ any failure exits non-zero:
               and no plain version; K1 and K3 against their plain versions
               on every query of one 1-spp frame of the capture (307,200
               closest-hit rays and 614,400 shadow lanes per bounce, most
-              of them aimed at the transmitter fan); a 32x32 8-spp capture
+              of them aimed at the transmitter fan), and K3 against K1's
+              hits on every shadow lane of it; a 32x32 8-spp capture
               against the CPU; 3 distance-mode steps; the flash (conf 1)
               against conf 0 on the box with its emission killed; the
               breakdown of one 1-spp LiDAR frame
@@ -75,7 +80,10 @@ hit masks equal except on lanes whose u, v, 1-u-v, t or t-tmax lies
 within 1e-5 of a validity boundary (computed in float64); best_t within
 rtol 1e-5 where both hit; best_i equal except where the two smallest
 candidate t's lie within 1e-5 of each other. K5 within RCP_APPROX_REL
-(2^-22) of the plain version's 1/x, relative. The card's LiDAR capture against the CPU's:
+(2^-22) of the plain version's 1/x, relative. K3 and K4 against K1's
+hits (isfinite(best_t) at the same per-lane tmax): equal on every lane,
+no band, as all three take a hit from the same exact f32 path. The
+card's LiDAR capture against the CPU's:
 distances within rtol 1e-4 on >= 99% of pixels (a Russian-roulette or
 frustum-edge flip moves a pixel), return shares within 0.02.
 
@@ -219,14 +227,18 @@ def ms_per_call(fn, calls=TIME_CALLS, rounds=TIME_ROUNDS):
 def shared_loads(path):
     """Shared-memory load instructions (LDS, by width) of each kernel in
     cuobjdump -sass of the library at `path`: {kernel: {opcode: count}}.
-    Loops are counted once per copy the compiler emitted (K2's scan loop
-    twice: the g = 1 and g > 1 walks each inline it)."""
+    Loops are counted once per copy the compiler emitted (the scan loop
+    of K2 and K4 twice: the g = 1 and g > 1 walks each inline it). Also
+    {kernel: (instructions, digest)}: how many instructions the kernel has
+    and a SHA-1 of their text without the addresses, by which two builds
+    show whether a kernel's code changed."""
+    import hashlib
     import re
     from torch.utils.cpp_extension import CUDA_HOME
     out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
                           "-sass", path], capture_output=True, text=True,
                          timeout=120, check=True).stdout
-    counts, cur = {}, None
+    counts, code, cur = {}, {}, None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -234,12 +246,43 @@ def shared_loads(path):
                         if f"{k}_kernel" in m.group(1)), m.group(1))
             if "ILb1E" in m.group(1):
                 cur += " (stats on)"
-            counts[cur] = {}
+            counts[cur], code[cur] = {}, []
             continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+        if m and cur:
+            code[cur].append(m.group(1).strip())
         m = re.search(r"\b(LDS(?:\.[A-Z0-9]+)*)\b", line)
         if m and cur and "@!PT" not in line:  # not a never-issued filler
             counts[cur][m.group(1)] = counts[cur].get(m.group(1), 0) + 1
-    return counts
+    return counts, {k: (len(v), hashlib.sha1("\n".join(v).encode())
+                        .hexdigest()[:12]) for k, v in code.items()}
+
+
+def check_wide_loads(loads):
+    """The redesigned kernels (K2, K3, K4, with and without stats) read
+    shared memory only in their scan loop, one triangle per iteration:
+    10 LDS.128 in each copy of the loop, and no narrower load."""
+    for k, c in loads.items():
+        if k.startswith(("closest_hit_kernel", "approx_reciprocal")):
+            continue
+        wide = c.get("LDS.128", 0)
+        log("build", f"{k}: {wide} LDS.128 = 10 per triangle in "
+            f"{wide // 10} cop{'y' if wide == 10 else 'ies'} of the scan "
+            f"loop, other shared loads {sum(c.values()) - wide}")
+        if wide not in (10, 20) or sum(c.values()) != wide:
+            raise AssertionError(f"{k} does not read a triangle with 10 "
+                                 f"LDS.128: {c}")
+
+
+def any_equals_k1(phase, label, co, phi, tmax, cb, stream):
+    """K3 (stream False) or K4 (True) against K1's hits on every lane."""
+    from tracer_tpu_torch.utils import kernel_timing
+    cmp = kernel_timing.any_vs_k1(co, phi, tmax, cb, stream)
+    log(phase, f"{'K4' if stream else 'K3'} against isfinite(K1 best_t) on "
+        f"{label}: {cmp['lanes']} lanes, {cmp['hits']} hits, "
+        f"{cmp['differ']} lanes differ (no band)")
+    if cmp["differ"]:
+        raise AssertionError(f"the any-hit kernel and K1 disagree on {label}")
 
 
 def phase_kernels(ik, intersect, s, device, errs, card):
@@ -265,6 +308,8 @@ def phase_kernels(ik, intersect, s, device, errs, card):
     upd("closest_hit", check_closest(ik, "cornell camera", co, phi_cam, hi, cb))
     upd("closest_hit", check_closest(ik, "cornell bounce", co, phi_bnc, hi, cb))
     upd("any_hit", check_any(ik, "cornell shadow 2N", co, phi_sh, st, cb))
+    any_equals_k1("kernels", "the Cornell shadow lanes", co, phi_sh, st, cb,
+                  False)
     eo, ed = kc.cornell_plane_rays()
     phi_ex = intersect.ray_features_t(v3(eo), v3(ed))
     every = torch.ones(phi_ex.shape[1], dtype=torch.bool, device=device)
@@ -348,6 +393,11 @@ def phase_kernels(ik, intersect, s, device, errs, card):
             f"{TIME_CALLS} back-to-back calls, {phi.shape[1]} lanes, on "
             f"{card})")
         cornell[k] = t
+    k3 = cornell["any_hit"]
+    log("kernels", f"K3 wrapper / alone at the Cornell shapes {k3['ms']:.4f} "
+        f"/ {k3['alone_ms']:.4f} ms, beside 0.3274 / 0.3255 ms of the "
+        f"block-granular, row-major K3 before it (NVIDIA H100 80GB HBM3, "
+        f"700.00 W)")
     return cornell
 
 
@@ -633,16 +683,18 @@ def phase_big_check(ik, intersect, device, errs):
 def schedule_stats(ik, intersect, s):
     """(4b) Entries per CUDA block of the chunk schedule (superchunks of
     g chunks) for the first-bounce closest query and the shadow query,
-    without and with the permutation the main path applies."""
+    at the blocks of K2 and K4, without and with the permutation the main
+    path applies."""
     from tracer_tpu_torch.ops import shapes
     from tracer_tpu_torch.utils import kernel_cases as kc
     dense = s.scene.accel
     cb = dense.chunk_bounds
     _, (bo, bd), (so, sd, st) = kc.render_rays(s)
-    for label, phi, tmax, dead_first in (
+    for label, phi, tmax, dead_first, tile in (
             ("first-bounce closest", intersect.ray_features_t(bo, bd),
-             shapes.F32_HIGHEST, False),
-            ("shadow 2N", intersect.ray_features_t(so, sd), st, True)):
+             shapes.F32_HIGHEST, False, ik.BLOCKS["closest_hit_streamed"]),
+            ("shadow 2N", intersect.ray_features_t(so, sd), st, True,
+             ik.BLOCKS["any_hit_streamed"])):
         for perm in ("off", "odmorton"):
             p, t = phi, tmax
             if perm != "off":
@@ -650,10 +702,10 @@ def schedule_stats(ik, intersect, s):
                                            dead_first=dead_first)
                 p = phi[:, idx]
                 t = tmax[idx] if dead_first else tmax
-            g, sb, _, count = ik.walk_schedule(p, t, cb)
+            g, sb, _, count = ik.walk_schedule(p, t, cb, ik.MAX_SCHED, tile)
             c = count.float()
             log("bigscene", f"schedule {label} perm={perm}: {c.shape[0]} "
-                f"blocks of {ik.BLOCK} lanes, entries per block mean "
+                f"blocks of {tile} lanes, entries per block mean "
                 f"{float(c.mean()):.2f} max {int(c.max())} of {sb.shape[0]} "
                 f"superchunks (g = {g}), blocks with none "
                 f"{int((c == 0).sum())}")
@@ -706,9 +758,10 @@ def phase_big_timing(ik, s, card):
     """(5) each of the four kernels on cornell-sub6's first-bounce rays
     (closest) and 2N shadow lanes (any), on the lanes as the main path
     orders them (perm="auto": odmorton), wrapper call and launch alone,
-    beside the plain version and the bound on the same inputs; K2's
-    in-kernel counts against the plain model of its cull, and K2 against
-    K1 on the same rays."""
+    beside the plain version and the bound on the same inputs; K2's and
+    K4's in-kernel counts against the plain model of their cull, K2
+    against K1 on the same rays, and K3 and K4 against K1's hits on the
+    shadow lanes."""
     from tracer_tpu_torch.ops import shapes
     from tracer_tpu_torch.utils import kernel_timing
     dense = s.scene.accel
@@ -746,11 +799,14 @@ def phase_big_timing(ik, s, card):
             f"calls), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"{t['timed_at']}, on {card}")
     k2, k4 = times["closest_hit_streamed"], times["any_hit_streamed"]
+    k3 = times["any_hit"]
     log("bigscene", f"K2 wrapper / alone {k2['ms']:.4f} / "
-        f"{k2['alone_ms']:.4f} ms and K4 {k4['ms']:.4f} / "
-        f"{k4['alone_ms']:.4f} ms, beside the wrapper times 61.3789 / "
-        f"21.7626 ms of the block-granular K2 and of K4 before it (NVIDIA "
-        f"H100 80GB HBM3, 700.00 W)")
+        f"{k2['alone_ms']:.4f} ms, beside the wrapper time 61.3789 ms of the "
+        f"block-granular K2 before it; K4 {k4['ms']:.4f} / "
+        f"{k4['alone_ms']:.4f} ms and K3 {k3['ms']:.4f} / "
+        f"{k3['alone_ms']:.4f} ms, beside 21.8144 / 17.5741 ms and 20.8726 / "
+        f"16.6858 ms of the block-granular, row-major K4 and K3 before them "
+        f"(NVIDIA H100 80GB HBM3, 700.00 W)")
 
     sc = kernel_timing.k2_scans(co, phi_b, hi, cb)
     lo, up = sc["warp_model_per_lane"]
@@ -764,10 +820,31 @@ def phase_big_timing(ik, s, card):
         f"53.40 of 59 "
         f"superchunks = {53.40 * 6 * 256:.0f} per lane; chunks copied "
         f"{sc['copies']} = {sc['copies_per_block']:.2f} per block, schedule "
-        f"entries {sc['entries_per_block']:.2f} per block")
+        f"entries {sc['entries_per_block'][0]:.2f} per block (at most "
+        f"{sc['entries_per_block'][1]}); the model's copies per block "
+        f"{sc['model_copies_per_block'][0]:.2f} in the mean, at most "
+        f"{sc['model_copies_per_block'][1]}")
     if not (lo <= sc["scanned_per_lane"] <= up and up <= bup
             and sc["scanned_per_lane"] < 53.40 * 6 * 256):
         raise AssertionError("K2's scans fall outside the plain model's "
+                             "bracket")
+    sc = kernel_timing.k4_scans(co, phi_s, st, cb)
+    lo, up = sc["warp_model_per_lane"]
+    blo, bup = sc["block256_model_per_lane"]
+    log("bigscene", f"K4 counts ({ik.STREAMED_ANY_BLOCK}-lane blocks, "
+        f"{sc['lanes']} shadow lanes, {sc['dead']} dead, {sc['occluded']} "
+        f"occluded): {sc['warp_scans']} warp scans = "
+        f"{sc['scanned_per_lane']:.1f} scanned tests per lane; plain model "
+        f"of the warp cull {lo:.1f} (the lanes that never stop) .. {up:.1f} "
+        f"(every lane at its tmax); block-granular cull at 256 lanes "
+        f"{blo:.1f} .. {bup:.1f}; needed {sc['needed_per_lane']:.1f}; chunks "
+        f"copied {sc['copies']} = {sc['copies_per_block']:.2f} per block, "
+        f"schedule entries {sc['entries_per_block'][0]:.2f} per block (at "
+        f"most {sc['entries_per_block'][1]}); the model's copies per block "
+        f"{sc['model_copies_per_block'][0]:.2f} in the mean, at most "
+        f"{sc['model_copies_per_block'][1]}")
+    if not (lo <= sc["scanned_per_lane"] <= up and up <= bup):
+        raise AssertionError("K4's scans fall outside the plain model's "
                              "bracket")
     cmp = kernel_timing.k2_vs_k1(co, phi_b, hi, cb)
     log("bigscene", f"K2 against K1 on {cmp['lanes']} first-bounce rays: "
@@ -776,6 +853,9 @@ def phase_big_timing(ik, s, card):
         f" outside the {REL:g} tie band)")
     if cmp["best_t_bits_differ"] or cmp["best_i_differ_outside_ties"]:
         raise AssertionError("K2 and K1 disagree on cornell-sub6")
+    for stream in (False, True):
+        any_equals_k1("bigscene", "cornell-sub6's shadow lanes", co, phi_s,
+                      st, cb, stream)
     return times
 
 
@@ -917,7 +997,8 @@ def fan_lanes(phi, tmax, cam, origin):
 def check_capture_queries(ik, integrator, s, card, errs):
     """K1 and K3 against their plain versions on every closest- and
     any-hit query of one 1-spp frame of the capture, as the path hands
-    them to the kernels (tapped at the wrapper)."""
+    them to the kernels (tapped at the wrapper), and K3 against K1's hits
+    on every shadow lane of the frame."""
     closest, anyq = [], []
     with tap(ik, "closest_hit", closest), tap(ik, "any_hit", anyq):
         integrator.render_frames(s.seed, s.nonce, s.scene, s.cam,
@@ -936,6 +1017,7 @@ def check_capture_queries(ik, integrator, s, card, errs):
         errs["any_hit"] = max(errs["any_hit"], check_any(
             ik, f"capture bounce {i} (fan lanes {fan[-1][0]}, of them "
             f"occluded {fan[-1][1]})", co, phi, tm, cb, phase="lidar", **kw))
+        any_equals_k1("lidar", f"capture bounce {i}", co, phi, tm, cb, False)
     log("lidar", f"K1/K3 held to the plain versions on {len(closest)} "
         f"bounces of a 1-spp {LIDAR_W}x{LIDAR_H} frame: "
         f"{closest[0][0][1].shape[1]} closest rays and "
@@ -1079,8 +1161,11 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("build", line.strip())
-    for k, c in shared_loads(info["path"]).items():
-        log("build", f"cuobjdump -sass {k}: shared-memory loads {c}")
+    loads, code = shared_loads(info["path"])
+    for k, c in loads.items():
+        log("build", f"cuobjdump -sass {k}: {code[k][0]} instructions "
+            f"(digest {code[k][1]}), shared-memory loads {c}")
+    check_wide_loads(loads)
 
     errs = dict.fromkeys(VARIANTS, 0.0)
     scene_arrays, scene_name = load_cornell()

@@ -208,22 +208,63 @@ def test_cpu_tensors_run_plain_versions_only():
 
 def test_stats_and_prepared_launch_need_the_card():
     """The stats counts and prepared_launch describe a kernel's work: a
-    CPU call with stats raises, as does prepared_launch on CPU tensors or
-    with an unknown query, and no count moves."""
+    CPU call of closest_hit or any_hit with stats raises, streamed or
+    resident, as does prepared_launch on CPU tensors or with an unknown
+    query, and no count moves."""
     _, jd, o, d = _case("chunks5")
     td = _dense_t(jd)
     phi = tint.ray_features_t(_v3t(o), _v3t(d))
     ik.reset_counts()
-    with pytest.raises(ValueError):
-        ik.closest_hit(td.coeffs, phi, 1e30, td.chunk_bounds, stream=True,
-                       stats=torch.zeros(2, dtype=torch.int64))
+    for call in (ik.closest_hit, ik.any_hit):
+        for stream in (True, False):
+            with pytest.raises(ValueError):
+                call(td.coeffs, phi, 1e30, td.chunk_bounds, stream=stream,
+                     stats=torch.zeros(2, dtype=torch.int64))
     for query in ("closest", "any", "nearest"):
         with pytest.raises(ValueError):
             ik.prepared_launch(query, td.coeffs, phi, 1e30, td.chunk_bounds)
     assert ik.launches == dict.fromkeys(ik.VARIANTS, 0)
     assert ik.plain_calls == dict.fromkeys(ik.VARIANTS, 0)
     assert ik.variant_name("closest", True) == "closest_hit_streamed"
-    assert ik.BLOCKS["closest_hit_streamed"] == ik.STREAMED_CLOSEST_BLOCK
+    assert ik.BLOCKS == {"closest_hit": ik.BLOCK,
+                         "closest_hit_streamed": ik.STREAMED_CLOSEST_BLOCK,
+                         "any_hit": ik.ANY_BLOCK,
+                         "any_hit_streamed": ik.STREAMED_ANY_BLOCK}
+
+
+@pytest.mark.parametrize("name", ik.VARIANTS)
+def test_operand_rules_of_each_kernel(name):
+    """What a kernel takes of its operands, checked before any launch: the
+    resident kernels stage a whole chunk in 48 KB (at most 307 triangles),
+    the streamed ones stage pieces of a chunk of any size; every kernel
+    but K1 copies 8-byte pieces and needs coeffs 8-byte aligned (a float32
+    view one element into its storage is not); operands are contiguous."""
+    streamed = name.endswith("_streamed")
+    assert ik.MAX_CHUNK_T == {"resident": 307, "streamed": None}
+    phi, tmax = torch.zeros((10, 4)), torch.ones(4)
+    cb = torch.zeros((2, 8))
+
+    def operands(chunk_t, offset=0):
+        flat = torch.zeros(offset + 4 * 2 * chunk_t * 10)
+        co = flat[offset:].view(4, 2 * chunk_t, 10)
+        assert co.data_ptr() % 8 == 4 * (offset % 2)
+        return ik._cuda_operands(co, phi, tmax, cb, chunk_t, streamed, name)
+
+    assert operands(256).is_contiguous()
+    if streamed:
+        operands(2048)
+    else:
+        operands(307)
+        with pytest.raises(ValueError, match="exceeds the resident"):
+            operands(308)
+    if name == "closest_hit":
+        operands(256, offset=1)
+    else:
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            operands(256, offset=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ik._cuda_operands(torch.zeros((4, 512, 20))[:, :, ::2], phi, tmax, cb,
+                          256, streamed, name)
 
 
 @pytest.mark.parametrize("bad", [
@@ -377,3 +418,52 @@ def test_streamed_closest_matches_plain_on_card(case, cuda_device):
                          block)
     assert int(least.sum()) <= int(stats[1]) <= int(most.sum())
     assert 0 < int(stats[0]) <= order.shape[0] * cb.shape[0]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["random5_max_sched3", "sub5_streamed"])
+def test_streamed_any_matches_plain_on_card(case, cuda_device):
+    """K4 (warp-granular cull, triangle-major stage, a stopping walk)
+    against the plain version outside the boundary band, against K1's
+    hits on every lane, and its stats within the plain model's bracket
+    (kernel_cases.cull_pairs at unstopped_bound and at tmax); K3 gives
+    the same hits and takes no stats."""
+    if case == "random5_max_sched3":
+        _, jd, o, d = _case("chunks5")
+        td = _dense_t(jd).to(cuda_device)
+        co, cb = td.coeffs, td.chunk_bounds
+        phi = tint.ray_features_t(_v3t(o).to(cuda_device),
+                                  _v3t(d).to(cuda_device))
+        max_sched = 3
+    else:
+        dense, phi = _sub5_case(cuda_device)
+        co, cb, max_sched = dense.coeffs, dense.chunk_bounds, ik.MAX_SCHED
+    n = phi.shape[1]
+    tmax = torch.as_tensor(
+        np.where(np.arange(n) % 3 == 0, 0.0,
+                 np.where(np.arange(n) % 3 == 1, 0.5, 4.0)).astype(np.float32),
+        device=cuda_device)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    before = ik.launches["any_hit_streamed"]
+    hit = ik.any_hit(co, phi, tmax, cb, stream=True, max_sched=max_sched,
+                     stats=stats)
+    ref = ik.any_hit_ref(co, phi, tmax, cb)
+    bt, _ = ik.closest_hit(co, phi, tmax, cb, stream=False,
+                           max_sched=max_sched)
+    torch.cuda.synchronize()
+    assert ik.launches["any_hit_streamed"] == before + 1
+    edge, _ = kc.boundary_lanes(co, phi, tmax, cb)
+    assert torch.equal(hit[~edge], ref[~edge])
+    assert torch.equal(hit, torch.isfinite(bt))
+    assert 0 < int(hit.sum()) < n and not bool(hit[tmax <= 0].any())
+    block = ik.STREAMED_ANY_BLOCK
+    g, _, order, count = ik.walk_schedule(phi, tmax, cb, max_sched, block)
+    least = kc.cull_pairs(phi, kc.unstopped_bound(tmax, hit), cb, g, order,
+                          count, block)
+    most = kc.cull_pairs(phi, tmax, cb, g, order, count, block)
+    assert int(least.sum()) <= int(stats[1]) <= int(most.sum())
+    assert 0 < int(stats[0]) <= order.shape[0] * cb.shape[0]
+    assert torch.equal(ik.any_hit(co, phi, tmax, cb, stream=False,
+                                  max_sched=max_sched), hit)
+    with pytest.raises(ValueError):
+        ik.any_hit(co, phi, tmax, cb, stream=False, stats=stats)

@@ -22,9 +22,9 @@ from tracer_tpu_torch.utils import testscenes
 torch.set_num_threads(2)
 
 TILE = ik.BLOCK
-# the tiles the kernels' schedules are built at: 256 lanes (K1, K3, K4),
-# K2's block, and 128
-TILES = sorted({ik.BLOCK, ik.STREAMED_CLOSEST_BLOCK, 128})
+# the tiles the kernels' schedules are built at (the blocks of K1-K4), and
+# 128
+TILES = sorted({*ik.BLOCKS.values(), 128})
 
 
 def _chunks5():
@@ -183,6 +183,80 @@ def test_warp_cull_model_reaches_every_winner(max_sched, tile):
         assert bool(most[lanes // 32, bi[lanes].long() // chunk_t].all())
         assert bool((least <= most).all()) and int(least.sum()) > 0
         assert 32 * int(most.sum()) <= tile * int(blocks.sum())
+
+
+def _shadow_case(max_sched, tile):
+    """The 2N shadow lanes of subdivide(cornell_like, 4) at 32x32 (dead
+    lanes among them), the plain version's hits, and the schedule at
+    `tile` lanes."""
+    s = _sub4_state(32)
+    dense = s.scene.accel
+    _, _, (so, sd, st) = kc.render_rays(s)
+    phi = tint.ray_features_t(so, sd)
+    occ = ik.any_hit_ref(dense.coeffs, phi, st, dense.chunk_bounds)
+    assert 0 < int(occ.sum()) < int((st > 0).sum()) < st.shape[0]
+    g, _, order, count = ik.walk_schedule(phi, st, dense.chunk_bounds,
+                                          max_sched, tile)
+    assert g == (1 if max_sched == 64 else 3)
+    return dense, phi, st, occ, (g, order, count, tile)
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("max_sched", [64, 8])
+def test_any_hit_warp_cull_model_reaches_a_witness(max_sched, tile):
+    """kernel_cases.cull_pairs as the plain model of the any-hit kernels'
+    warp-granular cull: at tmax, the warp of every lane the plain version
+    finds occluded reaches at least one chunk that holds a valid hit of
+    that lane, so a walk that scans those pairs reports the lane."""
+    dense, phi, st, occ, sched = _shadow_case(max_sched, tile)
+    cb = dense.chunk_bounds
+    chunk_t = dense.coeffs.shape[1] // cb.shape[0]
+    most = kc.cull_pairs(phi, st, cb, *sched)
+    valid = torch.stack([
+        ik._chunk_scores(ik._chunk_rows(dense.coeffs, ci, chunk_t), phi, st,
+                         chunk_t)[0].any(dim=0)
+        for ci in range(cb.shape[0])])
+    assert torch.equal(valid.any(dim=0), occ)
+    lanes = torch.nonzero(occ)[:, 0]
+    assert bool((most[lanes // 32] & valid[:, lanes].T).any(dim=1).all())
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("max_sched", [64, 8])
+def test_any_hit_scan_bracket(max_sched, tile):
+    """The bracket of the scans an any-hit kernel runs: the pairs of the
+    lanes that never stop (kernel_cases.unstopped_bound: occluded and dead
+    lanes get a NaN bound and pass nothing) are among the pairs at tmax,
+    some warp of unstopped lanes is in both, and the dead lanes alone
+    reach nothing."""
+    dense, phi, st, occ, sched = _shadow_case(max_sched, tile)
+    cb = dense.chunk_bounds
+    keep = kc.unstopped_bound(st, occ)
+    assert torch.equal(torch.isnan(keep), occ | (st <= 0))
+    assert torch.equal(keep[~torch.isnan(keep)], st[~occ & (st > 0)])
+    most = kc.cull_pairs(phi, st, cb, *sched)
+    least = kc.cull_pairs(phi, keep, cb, *sched)
+    assert bool((least <= most).all())
+    assert 0 < int(least.sum()) <= int(most.sum())
+    dead = kc.cull_pairs(phi, torch.where(st > 0, float("nan"), st), cb,
+                         *sched)
+    assert not bool(dead.any())
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_heavy_first_orders_tiles_by_schedule_length(tile):
+    """heavy_first, the order in which the any-hit kernels work their
+    tiles: a permutation of the tiles, counts never rising along it, equal
+    counts in index order; tiles of dead lanes alone (no entries) last."""
+    _, _, st, _, (_, order, count, _) = _shadow_case(64, tile)
+    tiles = ik.heavy_first(count)
+    assert tiles.dtype == torch.int32 and tiles.shape == count.shape
+    assert sorted(tiles.tolist()) == list(range(count.shape[0]))
+    along = count[tiles.long()]
+    assert bool((along[1:] <= along[:-1]).all())
+    same = along[1:] == along[:-1]
+    assert bool((tiles[1:] > tiles[:-1])[same].all())
+    assert int(along[0]) == int(count.max()) > int(along[-1])
 
 
 @pytest.mark.parametrize("max_sched", [64, 3])

@@ -14,10 +14,11 @@
 //   any_hit_streamed_kernel      replaces _any_kernel_streamed     (K4)
 // all in tracer_tpu/ops/pallas/intersect_kernel.py.
 //
-// One thread owns one ray. A block of kBlock = 256 lanes (K1, K3, K4) or
-// kStreamedClosestBlock lanes (K2) is the ray tile: it walks its own
-// near-to-far schedule, order[blockIdx.x, :count[blockIdx.x]]
-// (ops/intersect_kernel.py:tile_chunk_order, built per block), whose
+// One thread owns one ray. A block is the ray tile: kBlock = 256 lanes
+// (K1), kAnyBlock (K3), kStreamedClosestBlock (K2) or kStreamedAnyBlock
+// (K4). It walks its tile's near-to-far schedule, order[tile,
+// :count[tile]] (ops/intersect_kernel.py:tile_chunk_order, built per
+// block; tile = blockIdx.x unless the launch orders its blocks), whose
 // entries are superchunks of g morton-consecutive chunks (g = 1: single
 // chunks). A null schedule walks every superchunk in index order. At g > 1
 // the walk is two-level, as in the TPU kernels: the superchunk's union box
@@ -29,59 +30,72 @@
 // walk: the TPU kernel's min/max carry the NaN into its slab test, which
 // then fails, whereas fminf/fmaxf here would drop it and pass every box.
 //
-// K1, K3 (resident) stage each chunk they visit synchronously in shared
-// memory (4 * chunk_t * 10 f32, 40 KB at chunk_t = 256); K4 keeps two such
-// slots (80 KB, dynamic shared memory above the 48 KB default, so the
-// launcher raises the kernel's limit first) and copies chunk r+1 with
-// cp.async in 16-byte pieces while chunk r is scanned, in the order of the
-// TPU kernels: decide block-wide whether chunk r+1 may be hit at the
-// current bound, issue its copy if so, then wait for chunk r and scan it
-// if its own copy was issued. There is no re-cull at visit time: bounds
-// only shrink, so a chunk that passed at prefetch time is scanned, and one
-// that failed would fail again. At g > 1 the pipeline restarts for each
-// superchunk that passes its union-box test. In these three the cull acts
-// only through the block-wide skip, as the TPU kernel's per-tile
-// jnp.any(_chunk_cull(...)): a lane whose own test fails still scans a
-// chunk its neighbours need.
+// K1 is the exact-path yardstick (walk_resident): it stages each chunk it
+// visits synchronously and row-major in shared memory (4 * chunk_t * 10
+// f32, 40 KB at chunk_t = 256), culls through the block-wide vote alone,
+// as the TPU kernel's per-tile jnp.any(_chunk_cull(...)) (a lane whose own
+// test fails still scans a chunk its neighbours need), reads a triangle
+// with 20 ld.shared.v2 and takes the IEEE divide on every (lane, triangle).
 //
-// K2 is redesigned for Hopper, where 32 lanes, not the whole tile, execute
-// together (walk_warp):
+// K2, K3 and K4 are redesigned for Hopper, where 32 lanes, not the whole
+// tile, execute together:
 // - Warp-granular cull. The same votes at the same points decide, per
-//   warp (__any_sync over Closest::wants), whether the warp scans the
+//   warp (__any_sync over Q::wants), whether the warp scans the
 //   superchunk's members and each chunk; the block-wide OR of the same
-//   votes decides the copy, through a two-slot cp.async ring. A warp
-//   skips a chunk only when none of its lanes can hit the chunk's box
-//   below its current bound, which the scan could not have changed, so
-//   every lane's best_t and best_i are those of the block-granular walk.
+//   votes decides the copy. A warp skips a chunk only when none of its
+//   lanes can hit the chunk's box below its current bound, which the scan
+//   could not have changed, so every lane's result is that of the
+//   block-granular walk.
 // - 128-bit shared-memory reads. A chunk is staged triangle-major, the 40
 //   coefficients of a triangle (rows a, n.s, m.e2, m.e1) contiguous,
 //   filled with 8-byte cp.async.ca pieces read in global-memory order; the
 //   scan reads a triangle with 10 ld.shared.v4 (all lanes of a warp on
-//   one address, a broadcast), where the row-major stage of K1, K3 and K4
-//   takes 20 ld.shared.v2. dot10's order of summation is kept, so t is bit
-//   for bit K1's.
-// - Occupancy. A block still waits at every staged piece for its slowest
-//   warp, so the time a warp with nothing to scan spends waiting is given
-//   to other blocks: chunks are staged in pieces of kPieceTris = 32
-//   triangles (two 5 KB slots, not two 40 KB chunks), a block has
-//   kStreamedClosestBlock = 64 lanes (2 warps), and a thread at most 64
-//   registers (kStreamedClosestMinBlocks = 16 blocks, 32 warps per SM,
-//   where two 40 KB slots allowed 2 blocks of 8 warps). Measured on
-//   cornell-sub6 (PERF.md): 256-lane blocks 22.7 ms, 128 20.1, 64 18.4,
-//   32 17.8; 64 keeps the warp vote apart from the block's at 3% cost.
-// - Divide only for candidates: a triangle is rejected
-//   from rcp.approx.ftz (K5's instruction, max rel error 2^-23.28 on the
-//   H100) with a relative slack of 2^-19, first from a and n.s alone
-//   (behind the ray or beyond min(tmax, best_t): the other two rows are
-//   not read), then from u and v; only a triangle that may be a valid hit
-//   takes the exact IEEE divide, so every value kept is the exact path's.
+//   one address, a broadcast). dot10's order of summation is kept, so t is
+//   bit for bit K1's.
+// - Divide only for candidates: a triangle is rejected from
+//   rcp.approx.ftz (K5's instruction, max rel error 2^-23.28 on the H100)
+//   with a relative slack of 2^-19, first from a and n.s alone (behind
+//   the ray or beyond the lane's bound: the other two rows are not read),
+//   then from u and v; only a triangle that may be a valid hit takes the
+//   exact IEEE divide, so every value kept, and every hit reported, is
+//   the exact path's.
 // - Tensor cores are not used: the score product has depth 10 (16 padded)
 //   and TF32's 10-bit mantissa would break the exact-f32 contract with the
 //   JAX CPU path (best_t within rtol 1e-5), and the cost lies in tests the
 //   answer does not need, which wgmma would make cheaper, not fewer.
-// - An optional stats pointer counts per launch the chunks copied and the
-//   (warp, chunk) scans run; it is null on the main path, where the
-//   counting is compiled out.
+//
+// K2 and K4 (streamed, walk_warp) copy through a two-slot cp.async ring
+// and give the time a warp with nothing to scan spends at the block's
+// barriers to other blocks: chunks are staged in pieces of 32 triangles
+// (two 5 KB slots, not two 40 KB chunks) by small blocks of at most 64
+// registers a thread, so that 32 warps share an SM. K2: 64 lanes, at least
+// 16 blocks per SM (measured on cornell-sub6, PERF.md: 256-lane blocks
+// 22.7 ms, 128 20.1, 64 18.4, 32 17.8; 64 keeps the warp vote apart from
+// the block's at 3% cost). K4's constants are its own, measured on the
+// 524,288 shadow lanes of the same scene (PERF.md: 256-lane blocks 7.84
+// ms, 128 7.03, 64 7.00, 32 7.5-7.7, tiles in index order). K4 is a stopping
+// query: a dead lane (tmax <= 0) and a lane that found its hit vote no, a
+// warp whose lanes are all done skips the rest of its chunk, and a block
+// with no lane left starts no further copy and returns once none is in
+// flight. An optional stats pointer counts per launch the chunks copied
+// and the (warp, chunk) scans run; it is null on the main path, where the
+// counting is compiled out.
+//
+// K3 and K4 take an order of their tiles from the launcher (block b works
+// tile tiles[b]: the tiles with the longest schedules first). Blocks
+// start in index order and a tile's walk is as long as its schedule; a
+// shadow tile's is 8 entries in the mean and up to 36 on cornell-sub6, so
+// in index order the card ends on a few long walks started last (K4 alone
+// on that scene's 524,288 shadow lanes, on an H100 at 700 W: 7.01 ms in
+// index order, 5.50 ms longest first).
+//
+// K3 (resident, walk_resident_warp) keeps a whole chunk per barrier and no
+// ring: its main path is the one-chunk box, where a ring buys nothing. It
+// fills its one slot through the streamed kernels' copy (issue_piece over
+// the whole chunk, then a wait) rather than a transposing store from
+// registers: the 8-byte pieces land triangle-major without passing
+// through registers or conflicting on banks, and the routine is the one
+// K2 and K4 already exercise.
 //
 // Per lane and triangle a scan evaluates a, n.s, m.e2, m.e1 as 10-term
 // f32 dot products, then the exact IEEE divide of the plain version
@@ -92,23 +106,30 @@
 //
 // What bounds the kernels on an H100 is not measured (Nsight Compute does
 // not run where the card is). A lane reads 44 bytes of features and tmax
-// and writes 8; each visited chunk costs the block 40 KB of coefficient
-// reads, from L2 for the 14.4 MB of a 90k-triangle scene. Per lane and
-// triangle the scan issues 40 FMAs, the divide and the validity tests;
-// K1, K3 and K4 read the coefficients with 40 scalar broadcast loads,
-// which an SM issues at about a quarter of its FMA rate. The schedule and
-// the culls decide how many chunks are scanned at all.
+// and writes 8 (K1, K2) or 1 (K3, K4); each chunk a block copies costs it
+// chunk_t * 160 bytes of coefficient reads, from L2 for the 14.4 MB of a
+// 90k-triangle scene. Per lane and triangle the full scan runs 40 FMAs,
+// the divide and the validity tests, and reads the coefficients with 20
+// LDS.64 (K1) or 10 LDS.128 (K2-K4, 5 for a triangle rejected at the
+// first stage), as cuobjdump -sass shows them. The schedule and the culls
+// decide how many chunks are scanned at all.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kStreamedClosestBlock = 64;   // K2's lanes per block
+constexpr int kBlock = 256;                   // K1's lanes per block
+constexpr int kAnyBlock = 256;                // K3's lanes per block
+constexpr int kAnyMinBlocks = 4;              // K3's blocks per SM, at least
+constexpr int kStreamedClosestBlock = 64;     // K2's lanes per block
 constexpr int kStreamedClosestMinBlocks = 16; // K2's blocks per SM, at least
-constexpr int kPieceTris = 32;               // K2 stages chunks in pieces
+constexpr int kPieceTris = 32;                // K2 stages chunks in pieces
+constexpr int kStreamedAnyBlock = 64;         // K4's lanes per block
+constexpr int kStreamedAnyMinBlocks = 16;     // K4's blocks per SM, at least
+constexpr int kStreamedAnyPiece = 32;         // K4 stages chunks in pieces
 constexpr int kWarp = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr float kTriEps = 0.00001f;   // shapes.TRI_EPS
 constexpr float kAabbEps = 0.001f;    // shapes.AABB_EPS
 
@@ -228,6 +249,22 @@ __device__ __forceinline__ bool surely_outside(float r, float nu, float nv) {
     return u < kNeg || v < kNeg || (u + v) * kShrink > 1.0f;
 }
 
+// Rows k0 / 5 and k0 / 5 + 1 of triangle j of a stage laid out triangle-
+// major (count, 40), 16-byte aligned: five 128-bit loads into c[4 k0 ..].
+// Rows a and n.s are floats 0-19 of the triangle (k0 = 0), m.e2 and m.e1
+// floats 20-39 (k0 = 5), read as each stage of the rejection needs them.
+__device__ __forceinline__ void load_rows(float* c, const float4* s4, int j,
+                                          int k0) {
+#pragma unroll
+    for (int k = k0; k < k0 + 5; ++k) {
+        const float4 v = s4[10 * j + k];
+        c[4 * k] = v.x;
+        c[4 * k + 1] = v.y;
+        c[4 * k + 2] = v.z;
+        c[4 * k + 3] = v.w;
+    }
+}
+
 // Per-lane state of a closest-hit query: the running (best_t, best_i).
 // A lane that is not active (past n, or NaN) keeps the miss.
 struct Closest {
@@ -266,25 +303,13 @@ struct Closest {
         const float4* s4 = reinterpret_cast<const float4*>(sh);
 #pragma unroll 1
         for (int j = 0; j < count; ++j) {
-            // rows a and n.s are floats 0-19 of the triangle, n.e2 and n.e1
-            // floats 20-39: five float4 each, read as each stage needs them
             float c[40];
-            auto stage = [&](int k0) {
-#pragma unroll
-                for (int k = k0; k < k0 + 5; ++k) {
-                    const float4 v = s4[10 * j + k];
-                    c[4 * k] = v.x;
-                    c[4 * k + 1] = v.y;
-                    c[4 * k + 2] = v.z;
-                    c[4 * k + 3] = v.w;
-                }
-            };
-            stage(0);
+            load_rows(c, s4, j, 0);
             const float a = dot10(c, p);
             const float nt = dot10(c + 10, p);
             float r;
             if (surely_beyond(a, nt, fminf(tm, bt), r)) continue;
-            stage(5);
+            load_rows(c, s4, j, 5);
             const float nu = dot10(c + 20, p);
             const float nv = dot10(c + 30, p);
             if (surely_outside(r, nu, nv)) continue;
@@ -298,7 +323,8 @@ struct Closest {
 };
 
 // Per-lane state of a shadow query: a lane with tmax <= 0 does nothing,
-// and a lane leaves the walk at its first hit.
+// and a lane leaves the walk at its first hit. The kernel names the lane,
+// which follows the tile its block was given.
 struct AnyHit {
     static constexpr bool kStops = true;
     float p[10];
@@ -306,20 +332,34 @@ struct AnyHit {
     bool live, found;
 
     __device__ void load(const float* __restrict__ phi,
-                         const float* __restrict__ tmax, int n) {
-        const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+                         const float* __restrict__ tmax, int n, int lane) {
         tm = lane < n ? __ldg(tmax + lane) : 0.0f;
         live = lane < n && tm > 0.0f && load_features(p, phi, n, lane, tm);
         found = false;
     }
-    __device__ bool wants(const float* __restrict__ b) const {
-        return live && !found && slab_may_hit(p, b, tm);
-    }
     __device__ bool done() const { return !live || found; }
-    __device__ void scan(const float* sh, int chunk_t, int) {
-        if (!live || found) return;
-        for (int j = 0; j < chunk_t; ++j) {
-            if (triangle_t(sh, chunk_t, j, p, tm) < inf_f()) {
+    __device__ bool wants(const float* __restrict__ b) const {
+        return !done() && slab_may_hit(p, b, tm);
+    }
+    // Closest::scan_tri for a shadow lane: the bound of the first stage is
+    // the lane's tmax, and the first triangle the exact path confirms ends
+    // the lane's walk.
+    __device__ void scan_tri(const float* sh, int count, int) {
+        if (done()) return;
+        const float4* s4 = reinterpret_cast<const float4*>(sh);
+#pragma unroll 1
+        for (int j = 0; j < count; ++j) {
+            float c[40];
+            load_rows(c, s4, j, 0);
+            const float a = dot10(c, p);
+            const float nt = dot10(c + 10, p);
+            float r;
+            if (surely_beyond(a, nt, tm, r)) continue;
+            load_rows(c, s4, j, 5);
+            const float nu = dot10(c + 20, p);
+            const float nv = dot10(c + 30, p);
+            if (surely_outside(r, nu, nv)) continue;
+            if (moller_t(a, nt, nu, nv, tm) < inf_f()) {
                 found = true;
                 return;
             }
@@ -327,13 +367,23 @@ struct AnyHit {
     }
 };
 
-// Entries of this block's schedule, and entry r (a superchunk id).
-__device__ __forceinline__ int sched_len(const Walk& w) {
-    return w.count ? __ldg(w.count + blockIdx.x) : w.n_super;
+// The tile of lanes a block works and whose schedule it walks: its own
+// index, or tiles[blockIdx.x] where the launch orders its blocks (K3, K4:
+// the tiles with the longest schedules first, so that the card does not
+// end on a few long walks started last).
+__device__ __forceinline__ unsigned block_tile(
+        const int32_t* __restrict__ tiles) {
+    return tiles ? (unsigned)__ldg(tiles + blockIdx.x) : blockIdx.x;
 }
 
-__device__ __forceinline__ const int32_t* sched_row(const Walk& w) {
-    return w.order ? w.order + (size_t)blockIdx.x * w.n_super : nullptr;
+// Entries of a tile's schedule, and its row of entries (superchunk ids).
+__device__ __forceinline__ int sched_len(const Walk& w, unsigned tile) {
+    return w.count ? __ldg(w.count + tile) : w.n_super;
+}
+
+__device__ __forceinline__ const int32_t* sched_row(const Walk& w,
+                                                    unsigned tile) {
+    return w.order ? w.order + (size_t)tile * w.n_super : nullptr;
 }
 
 // Block-wide: may any lane of the block hit box b? Also a barrier.
@@ -344,7 +394,8 @@ __device__ __forceinline__ bool block_wants(const Q& q,
 }
 
 // ---------------------------------------------------------------------------
-// Resident walk (K1, K3): stage each visited chunk synchronously.
+// Resident walk (K1): stage each visited chunk synchronously, row-major;
+// the cull acts through the block-wide vote alone.
 
 __device__ __forceinline__ void stage_chunk(float* sh, const Walk& w,
                                             int ci) {
@@ -372,8 +423,8 @@ __device__ __forceinline__ void visit_resident(Q& q, const Walk& w,
 
 template <class Q>
 __device__ void walk_resident(Q& q, const Walk& w, float* sh) {
-    const int total = sched_len(w);
-    const int32_t* ids = sched_row(w);
+    const int total = sched_len(w, blockIdx.x);
+    const int32_t* ids = sched_row(w, blockIdx.x);
     for (int r = 0; r < total; ++r) {
         if constexpr (Q::kStops) {
             if (!__syncthreads_or(!q.done())) break;
@@ -390,13 +441,8 @@ __device__ void walk_resident(Q& q, const Walk& w, float* sh) {
 }
 
 // ---------------------------------------------------------------------------
-// Streamed walk (K2, K4): double-buffered cp.async copies of the chunks.
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(s), "l"(gmem) : "memory");
-}
+// Walks with a warp-granular cull (K2, K3, K4): the copy is block-wide, the
+// scan per warp; chunks staged triangle-major by cp.async.
 
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -406,83 +452,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
-
-// Issue the copy of chunk ci into `slot` as one commit group. Every
-// source piece is 16-byte aligned: the launcher checks the base and that
-// chunk_t is even, so ci * chunk_t * 40 and t_pad * 40 are multiples of 16.
-__device__ __forceinline__ void issue_chunk(float* slot, const Walk& w,
-                                            int ci) {
-    const int per_block = w.chunk_t * 10;
-    const int vecs = per_block / 4;
-    for (int idx = threadIdx.x; idx < 4 * vecs; idx += blockDim.x) {
-        const int blk = idx / vecs;
-        const int r = 4 * (idx - blk * vecs);
-        cp_async16(slot + blk * per_block + r,
-                   w.coeffs + (size_t)blk * w.t_pad * 10
-                   + (size_t)ci * per_block + r);
-    }
-    cp_async_commit();
-}
-
-// Block-wide prefetch gate of chunk ci at the lanes' current bounds.
-template <class Q>
-__device__ __forceinline__ bool may_visit(const Q& q, const Walk& w, int ci) {
-    const float* b = w.bounds + (size_t)ci * 8;
-    if (chunk_empty(b)) return false;  // uniform across the block
-    return block_wants(q, b);
-}
-
-// Scan the run of `len` chunks ids[r] (or base + r when ids is null)
-// through the two slots. Returns with no copy in flight.
-template <class Q>
-__device__ void pipeline(Q& q, const Walk& w, float* slots,
-                         const int32_t* ids, int base, int len) {
-    const int slot_floats = 4 * w.chunk_t * 10;
-    auto chunk = [&](int r) { return ids ? __ldg(ids + r) : base + r; };
-    bool started = len > 0 && may_visit(q, w, chunk(0));
-    if (started) issue_chunk(slots, w, chunk(0));
-    for (int r = 0; r < len; ++r) {
-        // The gate's vote comes after the scan of chunk r-1, so it is also
-        // the barrier between the last read of slot (r+1)&1 and the copy
-        // into it.
-        const bool next = r + 1 < len && may_visit(q, w, chunk(r + 1));
-        if (next) issue_chunk(slots + ((r + 1) & 1) * slot_floats, w,
-                              chunk(r + 1));
-        if (started) {
-            if (next) {
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();  // every thread's pieces of chunk r landed
-            q.scan(slots + (r & 1) * slot_floats, w.chunk_t, chunk(r));
-        }
-        started = next;
-    }
-}
-
-template <class Q>
-__device__ void walk_streamed(Q& q, const Walk& w, float* slots) {
-    const int total = sched_len(w);
-    const int32_t* ids = sched_row(w);
-    if (w.g == 1) {
-        pipeline(q, w, slots, ids, 0, total);
-        return;
-    }
-    for (int r = 0; r < total; ++r) {
-        if constexpr (Q::kStops) {
-            if (!__syncthreads_or(!q.done())) break;  // no copy in flight
-        }
-        const int si = ids ? __ldg(ids + r) : r;
-        if (!block_wants(q, w.sbounds + (size_t)si * 8)) continue;
-        const int base = si * w.g;
-        pipeline(q, w, slots, nullptr, base, min(w.g, w.n_chunks - base));
-    }
-}
-
-// ---------------------------------------------------------------------------
-// Streamed walk with a warp-granular cull (K2): the copy is block-wide, the
-// scan per warp; chunks staged triangle-major.
 
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
     const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -521,6 +490,13 @@ struct WalkCounts {
     __device__ void scanned() {
         if constexpr (kOn) ++scans;
     }
+    // stats (2,): the launch's copies and scans, summed over its blocks
+    __device__ void add_to(unsigned long long* stats) const {
+        if constexpr (kOn) {
+            if (threadIdx.x == 0) atomicAdd(stats, copies);
+            if (threadIdx.x % kWarp == 0) atomicAdd(stats + 1, scans);
+        }
+    }
 };
 
 // The vote on chunk ci at the lanes' current bounds, also a barrier:
@@ -534,21 +510,37 @@ __device__ __forceinline__ bool vote_chunk(const Q& q, const Walk& w, int ci,
     warp = false;
     if (chunk_empty(b)) return false;  // uniform across the block
     const bool mine = warp_in && q.wants(b);
-    warp = __any_sync(0xffffffffu, mine);
+    warp = __any_sync(kFullWarp, mine);
     return __syncthreads_or(mine) != 0;
 }
 
-// pipeline() with the warp-granular scan, each chunk staged in pieces of
-// kPieceTris triangles through the two slots (2 x 10 KB at 64), so that
-// more blocks share an SM: a block waits at every piece for its slowest
-// warp, and other blocks' warps fill that time. The piece after (r, p)
-// is copied while (r, p) is scanned; the vote on chunk r+1 comes with the
-// last piece of chunk r. Returns with no copy in flight.
-template <class Q, class C>
+// A barrier; for a stopping query also whether any lane of the block is
+// still in the walk.
+template <class Q>
+__device__ __forceinline__ bool lanes_left(const Q& q) {
+    if constexpr (Q::kStops) {
+        return __syncthreads_or(!q.done()) != 0;
+    } else {
+        __syncthreads();
+        return true;
+    }
+}
+
+// Scan the run of `len` chunks ids[r] (or base + r when ids is null), each
+// staged in pieces of kPiece triangles through the two slots (2 x 5 KB at
+// 32), so that more blocks share an SM: a block waits at every piece for
+// its slowest warp, and other blocks' warps fill that time. The piece
+// after (r, p) is copied while (r, p) is scanned; the vote on chunk r+1
+// comes with the last piece of chunk r. There is no re-cull at scan time:
+// bounds only shrink, so a chunk that passed its vote is scanned by the
+// warps that wanted it, and one that failed would fail again. A stopping
+// query ends the run at the first barrier that finds no lane left.
+// Returns with no copy in flight.
+template <int kPiece, class Q, class C>
 __device__ void pipeline_warp(Q& q, const Walk& w, float* slots,
                               const int32_t* ids, int base, int len,
                               bool warp_in, C& n) {
-    const int piece_t = min(w.chunk_t, kPieceTris);
+    const int piece_t = min(w.chunk_t, kPiece);
     const int parts = (w.chunk_t + piece_t - 1) / piece_t;
     auto chunk = [&](int r) { return ids ? __ldg(ids + r) : base + r; };
     auto piece = [&](int s) { return slots + s * 40 * piece_t; };
@@ -568,19 +560,27 @@ __device__ void pipeline_warp(Q& q, const Walk& w, float* slots,
             bool issued = false;
             if (p + 1 < parts) {
                 if (!have) continue;  // uniform across the block
-                __syncthreads();      // the reads of slot ^ 1 are done
+                // the barrier after which the reads of slot ^ 1 are done
+                if (!lanes_left(q)) {
+                    cp_async_wait<0>();  // piece (r, p), which nobody reads
+                    return;
+                }
                 issue_piece(piece(slot ^ 1), w, ci, (p + 1) * piece_t,
                             size(p + 1));
                 issued = true;
-            } else {
+            } else if (r + 1 < len) {
                 // the vote is also the barrier before the copy
-                have_next = r + 1 < len && vote_chunk(q, w, chunk(r + 1),
-                                                      warp_in, scan_next);
+                have_next = vote_chunk(q, w, chunk(r + 1), warp_in,
+                                       scan_next);
                 if (have_next) {
                     issue_piece(piece(have ? slot ^ 1 : slot), w,
                                 chunk(r + 1), 0, size(0));
                     n.copied();
                     issued = true;
+                } else if (Q::kStops && w.g == 1 && !lanes_left(q)) {
+                    // nobody wants it because nobody is left (at g > 1
+                    // the walk asks before each superchunk)
+                    len = r + 1;
                 }
             }
             if (!have) continue;
@@ -593,6 +593,10 @@ __device__ void pipeline_warp(Q& q, const Walk& w, float* slots,
             if (scan_cur) {
                 q.scan_tri(piece(slot), size(p), ci * w.chunk_t + p * piece_t);
                 if (p == 0) n.scanned();
+                // a warp whose lanes are all done skips the chunk's rest
+                if constexpr (Q::kStops) {
+                    scan_cur = __any_sync(kFullWarp, !q.done());
+                }
             }
             slot ^= 1;
         }
@@ -601,22 +605,66 @@ __device__ void pipeline_warp(Q& q, const Walk& w, float* slots,
     }
 }
 
-template <class Q, class C>
-__device__ void walk_warp(Q& q, const Walk& w, float* slots, C& n) {
-    const int total = sched_len(w);
-    const int32_t* ids = sched_row(w);
+// The vote on superchunk si, also a barrier: whether any lane of the
+// block may hit its union box, and in `warp` whether any lane of this warp
+// may.
+template <class Q>
+__device__ __forceinline__ bool vote_super(const Q& q, const Walk& w, int si,
+                                           bool& warp) {
+    const bool mine = q.wants(w.sbounds + (size_t)si * 8);
+    warp = __any_sync(kFullWarp, mine);
+    return __syncthreads_or(mine) != 0;
+}
+
+// Streamed (K2, K4): the chunks go through the two-slot ring; at g > 1 the
+// pipeline restarts for each superchunk that passes its vote.
+template <int kPiece, class Q, class C>
+__device__ void walk_warp(Q& q, const Walk& w, unsigned tile, float* slots,
+                          C& n) {
+    const int total = sched_len(w, tile);
+    const int32_t* ids = sched_row(w, tile);
     if (w.g == 1) {
-        pipeline_warp(q, w, slots, ids, 0, total, true, n);
+        pipeline_warp<kPiece>(q, w, slots, ids, 0, total, true, n);
         return;
     }
     for (int r = 0; r < total; ++r) {
+        if constexpr (Q::kStops) {
+            if (!lanes_left(q)) break;  // no copy in flight
+        }
         const int si = ids ? __ldg(ids + r) : r;
-        const bool mine = q.wants(w.sbounds + (size_t)si * 8);
-        const bool warp_in = __any_sync(0xffffffffu, mine);
-        if (!__syncthreads_or(mine)) continue;
+        bool warp_in;
+        if (!vote_super(q, w, si, warp_in)) continue;
         const int base = si * w.g;
-        pipeline_warp(q, w, slots, nullptr, base, min(w.g, w.n_chunks - base),
-                      warp_in, n);
+        pipeline_warp<kPiece>(q, w, slots, nullptr, base,
+                              min(w.g, w.n_chunks - base), warp_in, n);
+    }
+}
+
+// Resident (K3): one slot holds the whole chunk, copied and waited for
+// between two barriers; a warp scans it when one of its lanes wants it.
+template <class Q>
+__device__ void walk_resident_warp(Q& q, const Walk& w, unsigned tile,
+                                   float* sh) {
+    const int total = sched_len(w, tile);
+    const int32_t* ids = sched_row(w, tile);
+    for (int r = 0; r < total; ++r) {
+        if constexpr (Q::kStops) {
+            if (!lanes_left(q)) break;
+        }
+        const int si = ids ? __ldg(ids + r) : r;
+        bool warp_in = true;
+        if (w.g > 1 && !vote_super(q, w, si, warp_in)) continue;
+        const int end = min(si * w.g + w.g, w.n_chunks);
+        for (int ci = si * w.g; ci < end; ++ci) {
+            // the vote is also the barrier that ends every read of the
+            // chunk staged before
+            bool scan;
+            if (!vote_chunk(q, w, ci, warp_in, scan)) continue;
+            issue_piece(sh, w, ci, 0, w.chunk_t);
+            cp_async_wait<0>();
+            __syncthreads();  // every thread's part of the chunk landed
+            if (scan) q.scan_tri(sh, w.chunk_t, ci * w.chunk_t);
+        }
     }
 }
 
@@ -652,40 +700,45 @@ closest_hit_streamed_kernel(Walk w, const float* __restrict__ phi,
     Closest q;
     q.load(phi, tmax, n);
     WalkCounts<kStats> counts;
-    walk_warp(q, w, sh, counts);
+    walk_warp<kPieceTris>(q, w, blockIdx.x, sh, counts);
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
     if (lane < n) {
         best_t[lane] = q.bt;
         best_i[lane] = q.bi;
     }
-    if constexpr (kStats) {
-        if (threadIdx.x == 0) atomicAdd(stats, counts.copies);
-        if (threadIdx.x % kWarp == 0) atomicAdd(stats + 1, counts.scans);
-    }
+    counts.add_to(stats);
 }
 
-__global__ void __launch_bounds__(kBlock)
-any_hit_kernel(Walk w, const float* __restrict__ phi,
+__global__ void __launch_bounds__(kAnyBlock, kAnyMinBlocks)
+any_hit_kernel(Walk w, const int32_t* __restrict__ tiles,
+               const float* __restrict__ phi,
                const float* __restrict__ tmax, int n,
                uint8_t* __restrict__ hit) {
     extern __shared__ __align__(16) float sh[];
+    const unsigned tile = block_tile(tiles);
+    const int lane = tile * blockDim.x + threadIdx.x;
     AnyHit q;
-    q.load(phi, tmax, n);
-    walk_resident(q, w, sh);
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    q.load(phi, tmax, n, lane);
+    walk_resident_warp(q, w, tile, sh);
     if (lane < n) hit[lane] = q.found ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kBlock)
-any_hit_streamed_kernel(Walk w, const float* __restrict__ phi,
+template <bool kStats>
+__global__ void __launch_bounds__(kStreamedAnyBlock, kStreamedAnyMinBlocks)
+any_hit_streamed_kernel(Walk w, const int32_t* __restrict__ tiles,
+                        const float* __restrict__ phi,
                         const float* __restrict__ tmax, int n,
-                        uint8_t* __restrict__ hit) {
+                        uint8_t* __restrict__ hit,
+                        unsigned long long* __restrict__ stats) {
     extern __shared__ __align__(16) float sh[];
+    const unsigned tile = block_tile(tiles);
+    const int lane = tile * blockDim.x + threadIdx.x;
     AnyHit q;
-    q.load(phi, tmax, n);
-    walk_streamed(q, w, sh);
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    q.load(phi, tmax, n, lane);
+    WalkCounts<kStats> counts;
+    walk_warp<kStreamedAnyPiece>(q, w, tile, sh, counts);
     if (lane < n) hit[lane] = q.found ? 1 : 0;
+    counts.add_to(stats);
 }
 
 // ---------------------------------------------------------------------------
@@ -705,35 +758,34 @@ int make_walk(Walk* w, const float* coeffs, const float* bounds,
     return 0;
 }
 
-size_t slot_bytes(int chunk_t) {
-    return (size_t)4 * chunk_t * 10 * sizeof(float);
+// Shared memory of one staged slot. No launch takes more than the 48 KB a
+// block gets without an opt-in: the resident kernels stage one chunk (the
+// wrapper caps chunk_t; a larger one is refused at the launch), the
+// streamed ones two pieces.
+size_t slot_bytes(int tris) {
+    return (size_t)4 * tris * 10 * sizeof(float);
 }
 
-// Shared memory of one launch; above the default 48 KB the kernel's limit
-// is raised first, or the launch would be refused.
-int prepare(const void* kernel, size_t smem) {
-    if (smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-int streamed_ok(const float* coeffs, int chunk_t) {
-    return ((uintptr_t)coeffs % 16 == 0) && (chunk_t % 2 == 0);
-}
+// issue_piece copies 8-byte pieces, each at an even count of floats from
+// the base.
+bool stage_ok(const float* coeffs) { return (uintptr_t)coeffs % 8 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Lanes per block, the tile of the chunk schedule: of K1, K3 and K4, and
-// of K2.
+// Lanes per block, the tile of the chunk schedule, of K1, K2, K3 and K4.
 int kernel_block() { return kBlock; }
 int streamed_closest_block() { return kStreamedClosestBlock; }
+int any_block() { return kAnyBlock; }
+int streamed_any_block() { return kStreamedAnyBlock; }
 
 // Each entry point launches on `stream` and returns 0 or a cudaError_t
 // (cudaGetLastError() after the launch). order/count are both null (walk
 // every superchunk in index order) or both set, built at the variant's
-// block; sbounds is read at g > 1. stats (K2 only) is null or (2,) counts.
+// block; sbounds is read at g > 1. stats (K2 and K4 only) is null or (2,)
+// counts. tiles (K3, K4) is null or a permutation of the tiles, (grid,):
+// block b works tile tiles[b].
 int closest_hit_launch(int streamed, const float* coeffs, const float* phi,
                        const float* tmax, const float* bounds,
                        const float* sbounds, const int32_t* order,
@@ -746,20 +798,18 @@ int closest_hit_launch(int streamed, const float* coeffs, const float* phi,
                         n_chunks, chunk_t, g, n_super);
     if (err) return err;
     if (streamed) {
-        if (!streamed_ok(coeffs, chunk_t)) return (int)cudaErrorMisalignedAddress;
+        if (!stage_ok(coeffs)) return (int)cudaErrorMisalignedAddress;
         const int grid = (n + kStreamedClosestBlock - 1) / kStreamedClosestBlock;
         const size_t smem = 2 * slot_bytes(min(chunk_t, kPieceTris));
         auto kernel = stats ? closest_hit_streamed_kernel<true>
                             : closest_hit_streamed_kernel<false>;
-        if ((err = prepare((const void*)kernel, smem))) return err;
         kernel<<<grid, kStreamedClosestBlock, smem, (cudaStream_t)stream>>>(
             w, phi, tmax, n, best_t, best_i, stats);
     } else {
         if (stats) return (int)cudaErrorInvalidValue;
         const int grid = (n + kBlock - 1) / kBlock;
-        const size_t smem = slot_bytes(chunk_t);
-        if ((err = prepare((const void*)closest_hit_kernel, smem))) return err;
-        closest_hit_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+        closest_hit_kernel<<<grid, kBlock, slot_bytes(chunk_t),
+                             (cudaStream_t)stream>>>(
             w, phi, tmax, n, best_t, best_i);
     }
     return (int)cudaGetLastError();
@@ -769,25 +819,26 @@ int any_hit_launch(int streamed, const float* coeffs, const float* phi,
                    const float* tmax, const float* bounds,
                    const float* sbounds, const int32_t* order,
                    const int32_t* count, int n, int t_pad, int n_chunks,
-                   int chunk_t, int g, int n_super, uint8_t* hit,
-                   void* stream) {
+                   int chunk_t, int g, int n_super, const int32_t* tiles,
+                   uint8_t* hit, unsigned long long* stats, void* stream) {
     Walk w;
     int err = make_walk(&w, coeffs, bounds, sbounds, order, count, n, t_pad,
                         n_chunks, chunk_t, g, n_super);
     if (err) return err;
-    const int grid = (n + kBlock - 1) / kBlock;
+    if (!stage_ok(coeffs)) return (int)cudaErrorMisalignedAddress;
     if (streamed) {
-        if (!streamed_ok(coeffs, chunk_t)) return (int)cudaErrorMisalignedAddress;
-        const size_t smem = 2 * slot_bytes(chunk_t);
-        if ((err = prepare((const void*)any_hit_streamed_kernel, smem)))
-            return err;
-        any_hit_streamed_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-            w, phi, tmax, n, hit);
+        const int grid = (n + kStreamedAnyBlock - 1) / kStreamedAnyBlock;
+        const size_t smem = 2 * slot_bytes(min(chunk_t, kStreamedAnyPiece));
+        auto kernel = stats ? any_hit_streamed_kernel<true>
+                            : any_hit_streamed_kernel<false>;
+        kernel<<<grid, kStreamedAnyBlock, smem, (cudaStream_t)stream>>>(
+            w, tiles, phi, tmax, n, hit, stats);
     } else {
-        const size_t smem = slot_bytes(chunk_t);
-        if ((err = prepare((const void*)any_hit_kernel, smem))) return err;
-        any_hit_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
-            w, phi, tmax, n, hit);
+        if (stats) return (int)cudaErrorInvalidValue;
+        const int grid = (n + kAnyBlock - 1) / kAnyBlock;
+        any_hit_kernel<<<grid, kAnyBlock, slot_bytes(chunk_t),
+                         (cudaStream_t)stream>>>(w, tiles, phi, tmax, n,
+                                                 hit);
     }
     return (int)cudaGetLastError();
 }

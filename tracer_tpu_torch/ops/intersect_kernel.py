@@ -12,19 +12,22 @@ is a scalar or (N,). best_t is +inf and best_i 0 on a miss, best_i in
 storage order.
 
 Each wrapper has two variants, as the TPU package has: resident (K1, K3:
-each visited chunk staged synchronously in shared memory) and streamed
-(K2, K4: two shared-memory slots, the next chunk copied while the current
-one is scanned; K2 culls per warp and reads a triangle's coefficients
-with 128-bit loads). stream=None takes the streamed variant when T_pad >
-STREAM_MIN_T_PAD, the TPU package's own switch point, so that both
-packages take the same variant on the same scene. All walk the same kind
-of per-tile schedule: superchunks of g = ceil(n_chunks / max_sched)
-morton-consecutive chunks (superchunk_bounds), in the near-to-far order
-of tile_chunk_order, built per CUDA block of the variant's lanes
-(BLOCKS). A one-chunk scene gets no schedule and the kernel walks its
-chunk under the cull. The schedule only skips chunks no lane can reach,
-so every variant gives the plain version's hits and best t (ties in t
-may pick another index).
+each visited chunk staged whole in one shared-memory slot) and streamed
+(K2, K4: two slots of 32-triangle pieces, the next piece copied while
+the current one is scanned). K2, K3 and K4 cull per warp, stage a chunk
+triangle-major, read a triangle's coefficients with 128-bit loads and
+take the divide only for a triangle that may be a valid hit; K1 is the
+exact-path yardstick, block-granular and row-major. stream=None takes the
+streamed variant when T_pad > STREAM_MIN_T_PAD, the TPU package's own
+switch point, so that both packages take the same variant on the same
+scene. All walk the same kind of per-tile schedule: superchunks of g =
+ceil(n_chunks / max_sched) morton-consecutive chunks (superchunk_bounds),
+in the near-to-far order of tile_chunk_order, built per CUDA block of the
+variant's lanes (BLOCKS). A one-chunk scene gets no schedule and the
+kernel walks its chunk under the cull. The schedule only skips chunks no
+lane can reach, so every variant gives the plain version's hits and best
+t (ties in t may pick another index). K3 and K4 work their tiles in the
+order of heavy_first, the longest schedules first.
 
 Dispatch: a tensor on the CPU goes to the plain version (closest_hit_ref,
 any_hit_ref, the chunked exact-f32 form of tracer_tpu/ops/intersect.py);
@@ -42,11 +45,13 @@ import torch
 
 from tracer_tpu_torch.ops import cuda_lib, shapes
 
-# Lanes per CUDA block: the tile of the chunk schedule (csrc/intersect.cu
-# kBlock and kStreamedClosestBlock, checked at load through kernel_block()
-# and streamed_closest_block()).
+# Lanes per CUDA block, the tile of the chunk schedule, of K1, K2, K3 and
+# K4 (csrc/intersect.cu kBlock, kStreamedClosestBlock, kAnyBlock and
+# kStreamedAnyBlock, checked at load through the functions of _BLOCK_FNS).
 BLOCK = 256
 STREAMED_CLOSEST_BLOCK = 64
+ANY_BLOCK = 256
+STREAMED_ANY_BLOCK = 64
 # Most schedule entries per tile (tracer_tpu's MAX_SCHED): chunks group
 # into superchunks of g = ceil(n_chunks / max_sched).
 MAX_SCHED = 64
@@ -54,11 +59,10 @@ MAX_SCHED = 64
 STREAM_MIN_T_PAD = 65_536
 # Shared memory per triangle of a staged chunk: 4 rows of 10 f32.
 _TRI_BYTES = 4 * 10 * 4
-# Largest chunk each variant takes: the resident kernel stages one chunk
-# in the 48 KB a block gets without an opt-in, the streamed kernel two in
-# the 227 KB (232,448 bytes) a block may opt in to.
-MAX_CHUNK_T = {"resident": (48 * 1024) // _TRI_BYTES,
-               "streamed": 232_448 // (2 * _TRI_BYTES)}
+# Largest chunk each variant takes: the resident kernels stage one chunk
+# in the 48 KB a block gets without an opt-in; the streamed kernels stage
+# 32-triangle pieces of a chunk of any size (None: no cap).
+MAX_CHUNK_T = {"resident": (48 * 1024) // _TRI_BYTES, "streamed": None}
 # Bound on the (chunks, lanes) f32 temporaries of one schedule batch.
 _SCHED_ELEMS = 1 << 24
 
@@ -67,8 +71,10 @@ _SCHED_ELEMS = 1 << 24
 # version) and nowhere else; reset_counts() sets all to 0.
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
-BLOCKS = dict.fromkeys(VARIANTS, BLOCK) | {
-    "closest_hit_streamed": STREAMED_CLOSEST_BLOCK}
+BLOCKS = dict(zip(VARIANTS, (BLOCK, STREAMED_CLOSEST_BLOCK, ANY_BLOCK,
+                            STREAMED_ANY_BLOCK)))
+_BLOCK_FNS = dict(zip(VARIANTS, ("kernel_block", "streamed_closest_block",
+                                 "any_block", "streamed_any_block")))
 launches = {k: 0 for k in VARIANTS}
 plain_calls = {k: 0 for k in VARIANTS}
 
@@ -88,18 +94,17 @@ def build() -> ctypes.CDLL:
     once per hash of the sources), with the intersection entry points
     declared and each variant's block checked against BLOCKS."""
     lib = cuda_lib.load()
-    for fn, want in (("kernel_block", BLOCK),
-                     ("streamed_closest_block", STREAMED_CLOSEST_BLOCK)):
+    for name, fn in _BLOCK_FNS.items():
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
-        if getattr(lib, fn)() != want:
+        if getattr(lib, fn)() != BLOCKS[name]:
             raise RuntimeError(f"csrc/intersect.cu {fn}() is "
                                f"{getattr(lib, fn)()} lanes, the wrapper's "
-                               f"{want}")
+                               f"{BLOCKS[name]}")
     head = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     lib.closest_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
     lib.closest_hit_launch.restype = ctypes.c_int
-    lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 2
+    lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
     lib.any_hit_launch.restype = ctypes.c_int
     return lib
 
@@ -153,18 +158,19 @@ def streamed_variant(t_pad: int, stream=None, max_sched: int = MAX_SCHED
     return t_pad > STREAM_MIN_T_PAD if stream is None else stream
 
 
-def _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed):
+def _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed, name):
     kind = "streamed" if streamed else "resident"
-    if chunk_t > MAX_CHUNK_T[kind]:
+    cap = MAX_CHUNK_T[kind]
+    if cap is not None and chunk_t > cap:
         raise ValueError(f"chunk of {chunk_t} triangles exceeds the {kind} "
-                         f"kernel's {MAX_CHUNK_T[kind]}")
-    for name, x in (("coeffs", coeffs), ("phi", phi),
-                    ("chunk_bounds", chunk_bounds)):
+                         f"kernel's {cap}")
+    for label, x in (("coeffs", coeffs), ("phi", phi),
+                     ("chunk_bounds", chunk_bounds)):
         if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if streamed and (coeffs.data_ptr() % 16 or chunk_t % 2):
-        raise ValueError("the streamed kernel copies 16-byte pieces: coeffs "
-                         "must be 16-byte aligned and chunk_t even")
+            raise ValueError(f"{label} must be contiguous")
+    if name != "closest_hit" and coeffs.data_ptr() % 8:
+        raise ValueError(f"{name}_kernel stages 8-byte pieces: coeffs must "
+                         f"be 8-byte aligned")
     if phi.shape[1] >= 2 ** 31:
         raise ValueError("too many rays for int32 lane ids")
     return tmax.contiguous()
@@ -264,6 +270,16 @@ def walk_schedule(phi, tmax, chunk_bounds, max_sched: int = MAX_SCHED,
     return g, sbounds, order, count
 
 
+def heavy_first(count):
+    """The order in which a launch works its tiles, (n_tiles,) int32: the
+    tiles with the most schedule entries first (a stable sort of count,
+    descending). Blocks start in index order and a tile's walk is as long
+    as its schedule, so the longest walks start first and the short ones
+    fill the card behind them; in index order the card ends on a few long
+    walks started last (the any-hit kernels take it)."""
+    return torch.argsort(count, descending=True, stable=True).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 
@@ -333,41 +349,43 @@ def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
     ("any") on CUDA operands, with the operands checked and the chunk
     schedule built now: returns (launch, outs), where each launch() queues
     the kernel into the tensors outs, adds one to its count and returns
-    outs (N = 0 launches nothing). stats (K2 only): an int64 (2,) tensor
-    on the card to which each launch adds the chunks it copied and the
-    (warp, chunk) scans it ran. The schedule's tensors live as long as
-    launch."""
+    outs (N = 0 launches nothing). stats (the streamed kernels, K2 and
+    K4, only): an int64 (2,) tensor on the card to which each launch adds
+    the chunks it copied and the (warp, chunk) scans it ran. The
+    schedule's tensors live as long as launch."""
     tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
     name = variant_name(query, streamed)
     if phi.device.type != "cuda":
         raise ValueError(f"no intersection kernel for {phi.device}")
     if stats is not None and (
-            name != "closest_hit_streamed" or stats.dtype != torch.int64
+            not streamed or stats.dtype != torch.int64
             or stats.shape != (2,) or stats.device != phi.device):
         raise ValueError("stats is an int64 (2,) tensor beside phi, for "
-                         "the streamed closest-hit kernel only")
+                         "the streamed kernels only")
     n = phi.shape[1]
     if query == "closest":
         outs = (torch.empty((n,), dtype=torch.float32, device=phi.device),
                 torch.empty((n,), dtype=torch.int32, device=phi.device))
-        tail = (*outs, stats)
     else:
         outs = (torch.empty((n,), dtype=torch.bool, device=phi.device),)
-        tail = outs
     if not n:
         return (lambda: outs), outs
     entry = getattr(build(), f"{query}_hit_launch")
-    tmax = _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed)
+    tmax = _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed,
+                          name)
     g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
                                              max_sched, BLOCKS[name])
+    tail = (*outs, stats)
+    if query == "any":  # K3 and K4 work their tiles heaviest first
+        tail = (None if count is None else heavy_first(count), *tail)
     args = (int(streamed), _ptr(coeffs), _ptr(phi), _ptr(tmax),
             _ptr(chunk_bounds), _ptr(sbounds), _ptr(order), _ptr(count), n,
             coeffs.shape[1], n_chunks, chunk_t, g, sbounds.shape[0],
             *map(_ptr, tail), cuda_lib.raw_stream(phi.device.index))
 
     # the default argument keeps the tensors behind args' pointers alive
-    def launch(_held=(tmax, sbounds, order, count)):
+    def launch(_held=(tmax, sbounds, order, count, tail)):
         err = entry(*args)
         if err:
             raise RuntimeError(f"{name}_kernel launch failed: CUDA error "
@@ -386,6 +404,12 @@ def variant_name(query: str, streamed: bool) -> str:
     return f"{query}_hit_streamed" if streamed else f"{query}_hit"
 
 
+def _no_stats_on_cpu(stats) -> None:
+    if stats is not None:
+        raise ValueError("stats counts a kernel's work; the plain version "
+                         "has none")
+
+
 def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
                 max_sched: int = MAX_SCHED, stats=None):
     """Closest hit per ray: (best_t (N,) f32, best_i (N,) int32).
@@ -395,9 +419,7 @@ def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
     tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
     if phi.device.type == "cpu":
-        if stats is not None:
-            raise ValueError("stats counts a kernel's work; the plain "
-                             "version has none")
+        _no_stats_on_cpu(stats)
         plain_calls[variant_name("closest", streamed)] += 1
         return _closest_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
     launch, _ = prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
@@ -407,14 +429,16 @@ def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
 
 
 def any_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
-            max_sched: int = MAX_SCHED):
+            max_sched: int = MAX_SCHED, stats=None):
     """Whether any triangle is hit before tmax, per ray: (N,) bool.
-    stream and max_sched as for closest_hit."""
+    stream, max_sched and stats as for closest_hit."""
     tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
     if phi.device.type == "cpu":
+        _no_stats_on_cpu(stats)
         plain_calls[variant_name("any", streamed)] += 1
         return _any_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
     launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
-                                stream=stream, max_sched=max_sched)
+                                stream=stream, max_sched=max_sched,
+                                stats=stats)
     return launch()[0]

@@ -11,7 +11,10 @@ Used by tests/test_torch_intersect.py and chip_smoke.py.
   needed_tests        the (lane, triangle) tests a query needs, for its
                       bound in operations
   cull_pairs          the (group of lanes, chunk) pairs the kernels' cull
-                      lets through, a plain model of K2's warp-granular scan
+                      lets through, a plain model of the warp-granular scan
+                      of K2, K3 and K4
+  unstopped_bound     the bounds at which cull_pairs gives the scans an
+                      any-hit kernel cannot avoid
 """
 
 from __future__ import annotations
@@ -280,13 +283,16 @@ def cull_pairs(phi, bound, chunk_bounds, g: int, order, count, tile_n: int,
     of tile_n lanes; every superchunk when order is None). Lanes past N
     pass nothing.
 
-    group = 32 models K2's warp-granular cull: a warp scans a chunk when
-    some lane may hit its box at that lane's current bound. group = tile_n
-    is the block-granular cull of K1, K3 and K4. The kernel's lanes vote
-    at bounds between min(tmax, final best t) and tmax, and the test is
-    monotone in the bound, so the pairs at those two bounds bracket the
+    group = 32 models the warp-granular cull of K2, K3 and K4: a warp
+    scans a chunk when some lane may hit its box at that lane's current
+    bound. group = tile_n is the block-granular cull of K1. K2's lanes
+    vote at bounds between min(tmax, final best t) and tmax, and the test
+    is monotone in the bound, so the pairs at those two bounds bracket the
     (warp, chunk) scans K2 runs; the superchunk votes add nothing, as a
-    member's box lies inside its superchunk's."""
+    member's box lies inside its superchunk's. A shadow lane votes at its
+    tmax until it finds a hit, then not at all: the pairs at tmax bound
+    the scans of K3 and K4 from above, those at unstopped_bound from
+    below."""
     n = phi.shape[1]
     n_pad = -(-n // tile_n) * tile_n
     n_tiles = n_pad // tile_n
@@ -312,3 +318,12 @@ def cull_pairs(phi, bound, chunk_bounds, g: int, order, count, tile_n: int,
              .reshape(-1, n_pad // group, group).any(dim=2)
              for i in range(0, n_chunks, step)]
     return torch.cat(parts).T & listed
+
+
+def unstopped_bound(tmax, occluded):
+    """Per-lane bounds (N,) for cull_pairs that keep only the lanes an
+    any-hit walk cannot drop: an occluded lane leaves at its first hit,
+    wherever the walk finds it, and a dead lane (tmax <= 0) never enters,
+    so both get a NaN bound, which passes nothing; a live lane that is
+    never occluded keeps its tmax to the end of its schedule."""
+    return torch.where(occluded | ~(tmax > 0), float("nan"), tmax)
