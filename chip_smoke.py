@@ -10,27 +10,40 @@ any failure exits non-zero:
   2. build    nvcc-builds csrc/intersect.cu and csrc/recip.cu from the
               checkout into one library; counts each kernel's shared-
               memory load instructions in cuobjdump -sass of it (those of
-              K2, K3 and K4 are their scan loops', one triangle per
+              K1, K2, K3 and K4 are their scan loops', one triangle per
               iteration: 10 LDS.128 in each copy of the loop the compiler
-              emitted, and no narrower load, or the phase fails)
+              emitted, and no narrower load, or the phase fails); K1's
+              registers and spills as ptxas printed them
   3. kernels  the hand kernels against their plain PyTorch versions on
               the card: Cornell camera and first-bounce rays at 512x512,
               a 1,100-triangle 5-chunk random scene with on-plane
               axis-parallel rays and per-lane tmax (also with
               max_sched=3, g = 2 with a padded superchunk, in both
-              variants), and the brute-force oracle; then each resident
-              kernel's median time, wrapper call and launch alone, beside
-              its plain version's and its bound at the Cornell shapes,
-              where the main path launches it (CUDA events); K3 against
-              K1's hits on every Cornell shadow lane
+              variants), and the brute-force oracle; K1 with a mixed
+              per-lane tmax (live, 0 and NaN lanes, which must give
+              (+inf, 0)) against its plain version; K1 against the exact
+              yardstick kernel (closest_hit_exact_kernel: block-granular,
+              row-major, the divide on every triangle) on every Cornell
+              first-bounce ray, best_t bit for bit; then each resident
+              kernel's and the exact kernel's median time, wrapper call
+              and launch alone, beside its plain version's and its bound
+              at the Cornell shapes, where the main path launches it
+              (CUDA events); K3 against the exact kernel's hits on every
+              Cornell shadow lane
   4. main     the port's main path: init a 512x512 Cornell box, render
               16 spp (sample_n_frames(s, 17)), 3 x step_render; checks
               the image and that every kernel launched and no plain
-              intersect version ran; a 32x32 render is held against the
-              same render on the CPU
+              intersect version ran; inside the same window the exact
+              kernel runs once on the camera rays, and K1's hits on them,
+              taken before the window, must equal its own; a 32x32 render
+              is held against the same render on the CPU
   5. breakdown  one 1-spp render of the main path under torch.profiler:
               device busy share of the wall, device ops per bounce
-              iteration, each kernel's device time
+              iteration, each kernel's device time, and per bounce
+              iteration the live share of the lanes and the closest-hit
+              kernel's device ms; for the one-chunk box also the wrapper
+              call on the lanes as they come and with the dead lanes
+              partitioned first (sort, gather, kernel, two scatters)
   6. bigscene the big-scene path on subdivisions of the Cornell box
               (the same surfaces and materials): all four kernels on
               subdivide(cornell_like, 5) (22,528 triangles, 88 chunks)
@@ -48,9 +61,13 @@ any failure exits non-zero:
               call and launch alone (utils/kernel_timing.py), beside its
               bound (bytes or operations, whichever is larger); K2's
               and K4's in-kernel counts as scanned tests per lane beside
-              the plain model's bracket; K2 against K1 on the same rays
-              (best_t bits, best_i outside the tie band); K3 and K4
-              against K1's hits on all 524,288 shadow lanes
+              the plain model's bracket; K1 (stream=False) and K2
+              against the exact kernel on the same rays (best_t bits,
+              best_i outside the tie band); K3 and K4 against the exact
+              kernel's hits on all 524,288 shadow lanes; K1 and K2 alone
+              on the same first-bounce rays of subdivide(cornell_like,
+              4), 5 and 6, where ops/intersect_kernel.STREAM_MIN_T_PAD
+              switches between them
   7. recip    K5: the approximate-reciprocal probe
               (utils/measure_recip.measure) at n = 2^20 on the card, its
               JSON line, max_rel within APPROX_RECIP_REL = 2^-8 and within
@@ -67,8 +84,10 @@ any failure exits non-zero:
               and no plain version; K1 and K3 against their plain versions
               on every query of one 1-spp frame of the capture (307,200
               closest-hit rays and 614,400 shadow lanes per bounce, most
-              of them aimed at the transmitter fan), and K3 against K1's
-              hits on every shadow lane of it; a 32x32 8-spp capture
+              of them aimed at the transmitter fan), K1 against the exact
+              kernel on every closest query of it, and K3 against the
+              exact kernel's hits on every shadow lane of it; K1 timed at
+              the capture's shapes; a 32x32 8-spp capture
               against the CPU; 3 distance-mode steps; the flash (conf 1)
               against conf 0 on the box with its emission killed; the
               breakdown of one 1-spp LiDAR frame
@@ -80,9 +99,12 @@ hit masks equal except on lanes whose u, v, 1-u-v, t or t-tmax lies
 within 1e-5 of a validity boundary (computed in float64); best_t within
 rtol 1e-5 where both hit; best_i equal except where the two smallest
 candidate t's lie within 1e-5 of each other. K5 within RCP_APPROX_REL
-(2^-22) of the plain version's 1/x, relative. K3 and K4 against K1's
-hits (isfinite(best_t) at the same per-lane tmax): equal on every lane,
-no band, as all three take a hit from the same exact f32 path. The
+(2^-22) of the plain version's 1/x, relative. K1 and K2 against the exact
+kernel: best_t equal in every bit on every lane; best_i equal except
+inside that tie band (equal everywhere while both walk 256-lane tiles).
+K3 and K4 against the exact kernel's hits (isfinite(best_t) at the same
+per-lane tmax): equal on every lane, no band, as all take a hit from the
+same exact f32 arithmetic. The
 card's LiDAR capture against the CPU's:
 distances within rtol 1e-4 on >= 99% of pixels (a Russian-roulette or
 frustum-edge flip moves a pixel), return shares within 0.02.
@@ -97,7 +119,6 @@ chunk a ray enters up to its best t; for an any-hit query one chunk per
 occluded lane and every chunk an unoccluded lane enters before tmax.
 """
 
-import contextlib
 import json
 import os
 import subprocess
@@ -116,8 +137,10 @@ RESIDENT_LEVELS, SLICE_LEVELS, CHECK_LEVELS = 5, 6, 8
 CAM_ORIGIN = (0.0, 0.8, 1.8)
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
+EXACT = "closest_hit_exact"   # the yardstick, never on the path
 REPLACES = {
     "closest_hit": "tracer_tpu/ops/pallas/intersect_kernel.py:429",
+    EXACT: "tracer_tpu/ops/pallas/intersect_kernel.py:429",
     "closest_hit_streamed": "tracer_tpu/ops/pallas/intersect_kernel.py:589",
     "any_hit": "tracer_tpu/ops/pallas/intersect_kernel.py:497",
     "any_hit_streamed": "tracer_tpu/ops/pallas/intersect_kernel.py:704",
@@ -134,22 +157,11 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-@contextlib.contextmanager
 def tap(module, name, calls):
-    """Within the block, each call of module.name also appends (args,
-    kwargs, result) to calls."""
-    fn = getattr(module, name)
-
-    def tapped(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        calls.append((args, kwargs, out))
-        return out
-
-    setattr(module, name, tapped)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, fn)
+    """utils/kernel_timing.tap: within the block, each call of
+    module.name also appends (args, kwargs, result) to calls."""
+    from tracer_tpu_torch.utils import kernel_timing
+    return kernel_timing.tap(module, name, calls)
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +209,12 @@ def compare_any(phase, label, hk, hr, edge, exact=None):
 
 
 def check_closest(ik, label, coeffs, phi, tmax, bounds, exact=None,
-                  phase="kernels", **kw):
+                  phase="kernels", fn=None, **kw):
+    """fn: the wrapper held to the plain version, ik.closest_hit by
+    default."""
     from tracer_tpu_torch.utils import kernel_cases as kc
     return compare_closest(
-        phase, label, ik.closest_hit(coeffs, phi, tmax, bounds, **kw),
+        phase, label, (fn or ik.closest_hit)(coeffs, phi, tmax, bounds, **kw),
         ik.closest_hit_ref(coeffs, phi, tmax, bounds),
         kc.boundary_lanes(coeffs, phi, tmax, bounds, rel=REL), exact)
 
@@ -242,7 +256,8 @@ def shared_loads(path):
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = next((f"{k}_kernel" for k in VARIANTS + ("approx_reciprocal",)
+            cur = next((f"{k}_kernel"
+                        for k in VARIANTS + (EXACT, "approx_reciprocal")
                         if f"{k}_kernel" in m.group(1)), m.group(1))
             if "ILb1E" in m.group(1):
                 cur += " (stats on)"
@@ -259,11 +274,12 @@ def shared_loads(path):
 
 
 def check_wide_loads(loads):
-    """The redesigned kernels (K2, K3, K4, with and without stats) read
-    shared memory only in their scan loop, one triangle per iteration:
-    10 LDS.128 in each copy of the loop, and no narrower load."""
+    """K1, K2, K3 and K4 (with and without stats) read shared memory only
+    in their scan loop, one triangle per iteration: 10 LDS.128 in each
+    copy of the loop, and no narrower load. The exact kernel (row-major
+    stage, 64-bit loads) and K5 (no shared memory) are not held to it."""
     for k, c in loads.items():
-        if k.startswith(("closest_hit_kernel", "approx_reciprocal")):
+        if k.startswith((f"{EXACT}_kernel", "approx_reciprocal")):
             continue
         wide = c.get("LDS.128", 0)
         log("build", f"{k}: {wide} LDS.128 = 10 per triangle in "
@@ -274,15 +290,37 @@ def check_wide_loads(loads):
                                  f"LDS.128: {c}")
 
 
-def any_equals_k1(phase, label, co, phi, tmax, cb, stream):
-    """K3 (stream False) or K4 (True) against K1's hits on every lane."""
+def any_equals_exact(phase, label, co, phi, tmax, cb, stream):
+    """K3 (stream False) or K4 (True) against the exact kernel's hits on
+    every lane."""
     from tracer_tpu_torch.utils import kernel_timing
-    cmp = kernel_timing.any_vs_k1(co, phi, tmax, cb, stream)
-    log(phase, f"{'K4' if stream else 'K3'} against isfinite(K1 best_t) on "
-        f"{label}: {cmp['lanes']} lanes, {cmp['hits']} hits, "
+    cmp = kernel_timing.any_vs_exact(co, phi, tmax, cb, stream)
+    log(phase, f"{'K4' if stream else 'K3'} against isfinite(exact best_t) "
+        f"on {label}: {cmp['lanes']} lanes, {cmp['hits']} hits, "
         f"{cmp['differ']} lanes differ (no band)")
     if cmp["differ"]:
-        raise AssertionError(f"the any-hit kernel and K1 disagree on {label}")
+        raise AssertionError(f"the any-hit kernel and the exact kernel "
+                             f"disagree on {label}")
+
+
+def closest_equals_exact(phase, label, co, phi, tmax, cb, stream,
+                         same_tiles=False, **kw):
+    """K1 (stream False) or K2 (True) against the exact kernel on every
+    lane: best_t bit for bit; best_i outside the tie band, and on every
+    lane where both walk tiles of the same size (same_tiles). kw:
+    max_sched."""
+    from tracer_tpu_torch.utils import kernel_timing
+    cmp = kernel_timing.closest_vs_exact(co, phi, tmax, cb, stream, **kw)
+    log(phase, f"{'K2' if stream else 'K1'} against the exact kernel on "
+        f"{label}: {cmp['lanes']} lanes, {cmp['hits']} hits, best_t differs "
+        f"in bits on {cmp['best_t_bits_differ']} lanes, best_i on "
+        f"{cmp['best_i_differ']} ({cmp['best_i_differ_outside_ties']} outside "
+        f"the {REL:g} tie band; ties go by "
+        f"{'index: the tiles are the same' if same_tiles else 't'})")
+    if (cmp["best_t_bits_differ"] or cmp["best_i_differ_outside_ties"]
+            or (same_tiles and cmp["best_i_differ"])):
+        raise AssertionError(f"the closest-hit kernel and the exact kernel "
+                             f"disagree on {label}")
 
 
 def phase_kernels(ik, intersect, s, device, errs, card):
@@ -308,8 +346,31 @@ def phase_kernels(ik, intersect, s, device, errs, card):
     upd("closest_hit", check_closest(ik, "cornell camera", co, phi_cam, hi, cb))
     upd("closest_hit", check_closest(ik, "cornell bounce", co, phi_bnc, hi, cb))
     upd("any_hit", check_any(ik, "cornell shadow 2N", co, phi_sh, st, cb))
-    any_equals_k1("kernels", "the Cornell shadow lanes", co, phi_sh, st, cb,
-                  False)
+    any_equals_exact("kernels", "the Cornell shadow lanes", co, phi_sh, st,
+                     cb, False)
+    same = ik.BLOCK == ik.EXACT_BLOCK
+    for label, phi in (("the Cornell camera rays", phi_cam),
+                       ("the Cornell first-bounce rays", phi_bnc)):
+        closest_equals_exact("kernels", label, co, phi, hi, cb, False, same)
+    upd(EXACT, check_closest(ik, "exact kernel, cornell bounce", co, phi_bnc,
+                             hi, cb, fn=ik.closest_hit_exact))
+    # K1 under a mixed per-lane tmax, as the path hands it dead lanes:
+    # live, 0 and NaN lanes scattered through every warp
+    lane = torch.arange(phi_bnc.shape[1], device=device)
+    mixed = torch.where(lane % 5 == 1, 0.0, torch.where(
+        lane % 7 == 3, float("nan"),
+        torch.as_tensor(hi, dtype=torch.float32, device=device)))
+    upd("closest_hit", check_closest(ik, "cornell bounce, mixed per-lane tmax",
+                                     co, phi_bnc, mixed, cb))
+    closest_equals_exact("kernels", "the same under the mixed tmax", co,
+                         phi_bnc, mixed, cb, False, same)
+    bt, bi = ik.closest_hit(co, phi_bnc, mixed, cb)
+    off = ~(mixed > 0)
+    log("kernels", f"K1 mixed tmax: {int(off.sum())} lanes with tmax 0 or "
+        f"NaN, of them not (+inf, 0): "
+        f"{int((torch.isfinite(bt[off]) | (bi[off] != 0)).sum())}")
+    if bool(torch.isfinite(bt[off]).any()) or bool((bi[off] != 0).any()):
+        raise AssertionError("a lane with tmax 0 or NaN must give (+inf, 0)")
     eo, ed = kc.cornell_plane_rays()
     phi_ex = intersect.ray_features_t(v3(eo), v3(ed))
     every = torch.ones(phi_ex.shape[1], dtype=torch.bool, device=device)
@@ -351,6 +412,14 @@ def phase_kernels(ik, intersect, s, device, errs, card):
                 upd(ik.variant_name("closest", stream),
                     check_closest(ik, tag, rd.coeffs, phi_r, tm,
                                   rd.chunk_bounds, exact=nan_lanes, **kw))
+                if not stream:
+                    upd(EXACT, check_closest(
+                        ik, f"exact kernel, {tag}", rd.coeffs, phi_r, tm,
+                        rd.chunk_bounds, exact=nan_lanes,
+                        fn=ik.closest_hit_exact, max_sched=max_sched))
+                closest_equals_exact("kernels", tag, rd.coeffs, phi_r, tm,
+                                     rd.chunk_bounds, stream,
+                                     max_sched=max_sched)
                 upd(ik.variant_name("any", stream),
                     check_any(ik, tag, rd.coeffs, phi_r, tm, rd.chunk_bounds,
                               exact=nan_lanes, **kw))
@@ -379,8 +448,10 @@ def phase_kernels(ik, intersect, s, device, errs, card):
     from tracer_tpu_torch.utils import kernel_timing
     cornell = {}
     for k, query, phi, tm in (("closest_hit", "closest", phi_bnc, hi),
+                              (EXACT, "closest", phi_bnc, hi),
                               ("any_hit", "any", phi_sh, st)):
-        t = kernel_timing.kernel_times(query, co, phi, tm, cb, False)
+        t = kernel_timing.kernel_times("exact" if k == EXACT else query, co,
+                                       phi, tm, cb, False)
         ref = ik.closest_hit_ref if query == "closest" else ik.any_hit_ref
         t["plain_ms"] = ms_per_call(lambda: ref(co, phi, tm, cb))
         t["bound_ms"], t["bound_by"] = query_bound(
@@ -393,11 +464,18 @@ def phase_kernels(ik, intersect, s, device, errs, card):
             f"{TIME_CALLS} back-to-back calls, {phi.shape[1]} lanes, on "
             f"{card})")
         cornell[k] = t
-    k3 = cornell["any_hit"]
-    log("kernels", f"K3 wrapper / alone at the Cornell shapes {k3['ms']:.4f} "
-        f"/ {k3['alone_ms']:.4f} ms, beside 0.3274 / 0.3255 ms of the "
-        f"block-granular, row-major K3 before it (NVIDIA H100 80GB HBM3, "
-        f"700.00 W)")
+    k1, ex, k3 = cornell["closest_hit"], cornell[EXACT], cornell["any_hit"]
+    log("kernels", f"K1 wrapper / alone at the Cornell shapes {k1['ms']:.4f} "
+        f"/ {k1['alone_ms']:.4f} ms = "
+        f"{100 * k1['bound_ms'] / k1['alone_ms']:.1f}% of its bound alone, "
+        f"beside {ex['ms']:.4f} / {ex['alone_ms']:.4f} ms of the exact "
+        f"kernel, the block-granular, row-major K1 before it, in this run; "
+        f"K3 {k3['ms']:.4f} / {k3['alone_ms']:.4f} ms = "
+        f"{100 * k3['bound_ms'] / k3['alone_ms']:.1f}% of its bound (on "
+        f"{card})")
+    if not k1["alone_ms"] < ex["alone_ms"]:
+        raise AssertionError("K1 is not faster than the exact kernel at the "
+                             "Cornell shapes")
     return cornell
 
 
@@ -436,13 +514,15 @@ def check_image(img, label, phase="main"):
         raise AssertionError(f"{label}: red left / green right tint missing")
 
 
-def render_16spp(T, integrator, ik, s, phase, card):
-    """Warm up, set the counts to 0, time render_frames at 16 spp, and
-    check that sample_n_frames(s, 17) gives the same image. Returns
-    (image, launches, plain_calls) of that run."""
+def render_16spp(T, integrator, ik, s, phase, card, before=None):
+    """Warm up, call before() if given, set the counts to 0, time
+    render_frames at 16 spp, and check that sample_n_frames(s, 17) gives
+    the same image. Returns (image, launches, plain_calls) of that run."""
     import torch
     w, h = s.sub_dims
     T.sample_n_frames(s, 1)   # warm-up: first launches, allocator
+    if before is not None:
+        before()
     torch.cuda.synchronize()
     ik.reset_counts()
     t0 = time.perf_counter()
@@ -467,19 +547,38 @@ def render_16spp(T, integrator, ik, s, phase, card):
 def phase_main(T, integrator, ik, scene_arrays, card, device):
     import torch
     tris, tm, mats = scene_arrays
+    from tracer_tpu_torch.ops import intersect, shapes
+    from tracer_tpu_torch.utils import kernel_cases as kc
     s = T.init(0, SIZE, SIZE, 0, tris, tm, mats, cam_origin=CAM_ORIGIN,
                device=device)
-    img, _, _ = render_16spp(T, integrator, ik, s, "main", card)
+    dense = s.scene.accel
+    phi_cam = intersect.ray_features_t(*kc.render_rays(s)[0])
+    k1 = []   # K1 on the camera rays, taken before the counts are set to 0
+    img, _, _ = render_16spp(
+        T, integrator, ik, s, "main", card,
+        before=lambda: k1.extend(ik.closest_hit(
+            dense.coeffs, phi_cam, shapes.F32_HIGHEST, dense.chunk_bounds)))
     s2 = s
     for _ in range(3):
         s2, argb = T.step_render(s2)
         if tuple(argb.shape) != (SIZE, SIZE) or argb.dtype != torch.uint32:
             raise AssertionError(f"step_render gave {argb.dtype} "
                                  f"{tuple(argb.shape)}")
+    # the yardstick's one launch inside the window: the path never calls
+    # it, the smoke run holds the path's kernel to it
+    ex_t, _ = ik.closest_hit_exact(dense.coeffs, phi_cam, shapes.F32_HIGHEST,
+                                   dense.chunk_bounds)
     torch.cuda.synchronize()
     launches = dict(ik.launches)
     plain = dict(ik.plain_calls)
     log("main", f"launches={launches} plain_calls={plain}")
+    differ = int((ex_t.view(torch.int32) != k1[0].view(torch.int32)).sum())
+    log("main", f"the exact kernel inside the window, on the "
+        f"{phi_cam.shape[1]} camera rays: {int(torch.isfinite(ex_t).sum())} "
+        f"hits, best_t differs in bits from K1's on {differ} lanes")
+    if differ:
+        raise AssertionError("K1 and the exact kernel disagree on the camera "
+                             "rays")
     check_image(img, f"sample_n_frames {SIZE}x{SIZE} 16spp")
     if (launches["closest_hit"] <= 0 or launches["any_hit"] <= 0
             or max(plain.values()) != 0):
@@ -500,9 +599,11 @@ def busy_us(spans):
     return total
 
 
-def phase_breakdown(integrator, ik, s, card, names, phase="breakdown"):
+def phase_breakdown(integrator, ik, s, card, names, phase="breakdown",
+                    one_chunk=False):
     """Where the time of one 1-spp render goes, for the kernels `names`
-    (closest first) that the render launches once per bounce iteration.
+    (closest first) that the render launches once per bounce iteration;
+    one_chunk: also time the dead-lane partition per bounce.
     torch.profiler traces the card; the device is busy over the union of
     its kernel and copy intervals, each taken once, and the share is of
     the host-clock wall of the same profiled render (the profiler's own
@@ -537,8 +638,11 @@ def phase_breakdown(integrator, ik, s, card, names, phase="breakdown"):
         f"iterations, {len(dev)} device ops ({len(dev) / iters:.0f} per "
         f"iteration), device busy {busy:.4f} s = {100 * busy / wall:.1f}% of "
         f"the profiled wall, on {card}")
+    spans = {}
     for k in names:
-        ks = [e.time_range.elapsed_us() for e in dev if f"{k}_kernel" in e.name]
+        ks = [e.time_range.elapsed_us() for e in sorted(
+            (e for e in dev if f"{k}_kernel" in e.name),
+            key=lambda e: e.time_range.start)]
         if len(ks) != iters:
             raise AssertionError(f"{len(ks)} {k}_kernel spans in the trace, "
                                  f"{iters} bounce iterations")
@@ -546,6 +650,36 @@ def phase_breakdown(integrator, ik, s, card, names, phase="breakdown"):
             f"{sum(ks) / 1e3:.3f} ms on the device "
             f"({sum(ks) / len(ks) / 1e3:.4f} ms each), "
             f"{100 * sum(ks) / 1e6 / busy:.1f}% of device busy time")
+        spans[k] = ks
+    del prof, dev
+    # per bounce iteration: the live share of the lanes (the same frame
+    # again, its closest queries tapped at the wrapper) and the closest
+    # kernel's span in the trace above
+    from tracer_tpu_torch.utils import kernel_timing
+    queries = kernel_timing.bounce_queries(integrator, s)
+    if len(queries) != iters:
+        raise AssertionError(f"{len(queries)} closest queries in the frame, "
+                             f"{iters} bounce iterations")
+    live = [float((q[2] > 0).float().mean()) for q in queries]
+    log(phase, f"per bounce iteration, live share of {queries[0][1].shape[1]} "
+        f"lanes / {names[0]}_kernel ms in the profiled frame: "
+        + ", ".join(f"{i}: {100 * p:.2f}% / {t / 1e3:.4f}"
+                    for i, (p, t) in enumerate(zip(live, spans[names[0]])))
+        + f"; lane-iterations live {100 * sum(live) / len(live):.2f}%")
+    if one_chunk:
+        rows = kernel_timing.bounce_times(queries, partition=True)
+        log(phase, "per bounce iteration on the one-chunk box, ms: kernel "
+            "alone / wrapper on the lanes as they come / wrapper with the "
+            "dead lanes partitioned first (sort, gather, kernel, two "
+            "scatters): "
+            + ", ".join(f"{i}: {r['kernel_ms']:.4f} / {r['unsorted_ms']:.4f} "
+                        f"/ {r['partition_ms']:.4f}"
+                        for i, r in enumerate(rows))
+            + f"; sums {sum(r['kernel_ms'] for r in rows):.4f} / "
+            f"{sum(r['unsorted_ms'] for r in rows):.4f} / "
+            f"{sum(r['partition_ms'] for r in rows):.4f} ms over "
+            f"{len(rows)} iterations (median of {TIME_ROUNDS} rounds of "
+            f"{TIME_CALLS} back-to-back calls each, on {card})")
 
 
 def phase_reference(T, scene_arrays, device):
@@ -759,9 +893,10 @@ def phase_big_timing(ik, s, card):
     (closest) and 2N shadow lanes (any), on the lanes as the main path
     orders them (perm="auto": odmorton), wrapper call and launch alone,
     beside the plain version and the bound on the same inputs; K2's and
-    K4's in-kernel counts against the plain model of their cull, K2
-    against K1 on the same rays, and K3 and K4 against K1's hits on the
-    shadow lanes."""
+    K4's in-kernel counts against the plain model of their cull, K1 and
+    K2 against the exact kernel on the same rays, K3 and K4 against the
+    exact kernel's hits on the shadow lanes, and K1 beside K2 at three
+    scene sizes."""
     from tracer_tpu_torch.ops import shapes
     from tracer_tpu_torch.utils import kernel_timing
     dense = s.scene.accel
@@ -791,18 +926,35 @@ def phase_big_timing(ik, s, card):
                 "plain_ms": plain[query], "bound_ms": bounds[query][0],
                 "bound_by": bounds[query][1], "library_ms": None,
                 "timed_at": shapes_of[query]}
+    ex_launch, _ = ik.prepared_launch("exact", co, phi_b, hi, cb)
+    ex_ms = ms_per_call(lambda: ik.closest_hit_exact(co, phi_b, hi, cb),
+                        calls=5, rounds=3)
+    times[EXACT] = {
+        "ms": ex_ms, "alone_ms": ms_per_call(ex_launch, calls=5, rounds=3),
+        "plain_ms": plain["closest"], "bound_ms": bounds["closest"][0],
+        "bound_by": bounds["closest"][1], "library_ms": None,
+        "timed_at": shapes_of["closest"]}
     for k, t in times.items():
+        runs = ("3 rounds of 5" if k == EXACT
+                else f"{TIME_ROUNDS} rounds of {TIME_CALLS}")
         log("bigscene", f"time {k}: wrapper {t['ms']:.4f} ms (schedule "
             f"built in the call), launch alone {t['alone_ms']:.4f} ms "
-            f"(median of {TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back "
+            f"(median of {runs} back-to-back "
             f"calls), plain {t['plain_ms']:.4f} ms (median of 3 single "
             f"calls), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
             f"{t['timed_at']}, on {card}")
     k2, k4 = times["closest_hit_streamed"], times["any_hit_streamed"]
-    k3 = times["any_hit"]
+    k1, k3, ex = times["closest_hit"], times["any_hit"], times[EXACT]
+    log("bigscene", f"K1 wrapper / alone at cornell-sub6's shapes "
+        f"(stream=False) {k1['ms']:.4f} / {k1['alone_ms']:.4f} ms = "
+        f"{100 * k1['bound_ms'] / k1['alone_ms']:.1f}% of its bound alone, "
+        f"beside {ex['ms']:.4f} / {ex['alone_ms']:.4f} ms of the exact "
+        f"kernel, the block-granular, row-major K1 before it, in this run "
+        f"(on {card})")
     log("bigscene", f"K2 wrapper / alone {k2['ms']:.4f} / "
-        f"{k2['alone_ms']:.4f} ms, beside the wrapper time 61.3789 ms of the "
-        f"block-granular K2 before it; K4 {k4['ms']:.4f} / "
+        f"{k2['alone_ms']:.4f} ms, beside 21.2074 / 18.2619 ms with its tiles "
+        f"in index order and the wrapper time 61.3789 ms of the "
+        f"block-granular K2 before that; K4 {k4['ms']:.4f} / "
         f"{k4['alone_ms']:.4f} ms and K3 {k3['ms']:.4f} / "
         f"{k3['alone_ms']:.4f} ms, beside 21.8144 / 17.5741 ms and 20.8726 / "
         f"16.6858 ms of the block-granular, row-major K4 and K3 before them "
@@ -846,16 +998,28 @@ def phase_big_timing(ik, s, card):
     if not (lo <= sc["scanned_per_lane"] <= up and up <= bup):
         raise AssertionError("K4's scans fall outside the plain model's "
                              "bracket")
-    cmp = kernel_timing.k2_vs_k1(co, phi_b, hi, cb)
-    log("bigscene", f"K2 against K1 on {cmp['lanes']} first-bounce rays: "
-        f"best_t differs in bits on {cmp['best_t_bits_differ']} lanes, "
-        f"best_i on {cmp['best_i_differ']} ({cmp['best_i_differ_outside_ties']}"
-        f" outside the {REL:g} tie band)")
-    if cmp["best_t_bits_differ"] or cmp["best_i_differ_outside_ties"]:
-        raise AssertionError("K2 and K1 disagree on cornell-sub6")
+    order = kernel_timing.k2_block_order(co, phi_b, hi, cb)
+    log("bigscene", f"K2 alone with its tiles longest schedule first, as it "
+        f"launches them, {order['heavy_first_ms']:.4f} ms; in index order "
+        f"{order['index_order_ms']:.4f} ms (on {card})")
+    closest_equals_exact("bigscene", "cornell-sub6's first-bounce rays, "
+                         "stream=False", co, phi_b, hi, cb, False,
+                         ik.BLOCK == ik.EXACT_BLOCK)
+    closest_equals_exact("bigscene", "cornell-sub6's first-bounce rays", co,
+                         phi_b, hi, cb, True)
     for stream in (False, True):
-        any_equals_k1("bigscene", "cornell-sub6's shadow lanes", co, phi_s,
+        any_equals_exact("bigscene", "cornell-sub6's shadow lanes", co, phi_s,
                       st, cb, stream)
+    pairs = kernel_timing.stream_pairs(SIZE, phi_b.device,
+                                       states={SLICE_LEVELS: s})
+    log("bigscene", "K1 / K2 alone on the same first-bounce rays and K3 / "
+        "K4 on the same 2N shadow lanes (odmorton order): " + "; ".join(
+            f"subdivide(cornell_like, {lv}), T_pad {r['t_pad']}: "
+            f"{r['k1_alone_ms']:.4f} / {r['k2_alone_ms']:.4f} and "
+            f"{r['k3_alone_ms']:.4f} / {r['k4_alone_ms']:.4f} ms"
+            for lv, r in pairs.items())
+        + f"; stream=None streams above T_pad {ik.STREAM_MIN_T_PAD} (median "
+        f"of 5 rounds of 10 back-to-back launches, on {card})")
     return times
 
 
@@ -997,8 +1161,10 @@ def fan_lanes(phi, tmax, cam, origin):
 def check_capture_queries(ik, integrator, s, card, errs):
     """K1 and K3 against their plain versions on every closest- and
     any-hit query of one 1-spp frame of the capture, as the path hands
-    them to the kernels (tapped at the wrapper), and K3 against K1's hits
-    on every shadow lane of the frame."""
+    them to the kernels (tapped at the wrapper), K1 against the exact
+    kernel on every closest query and K3 against the exact kernel's hits
+    on every shadow lane of the frame; then K1 timed on the frame's first
+    closest query, every lane live. Returns those times."""
     closest, anyq = [], []
     with tap(ik, "closest_hit", closest), tap(ik, "any_hit", anyq):
         integrator.render_frames(s.seed, s.nonce, s.scene, s.cam,
@@ -1011,13 +1177,16 @@ def check_capture_queries(ik, integrator, s, card, errs):
     for i, ((co, phi, tm, cb), kw, _) in enumerate(closest):
         errs["closest_hit"] = max(errs["closest_hit"], check_closest(
             ik, f"capture bounce {i}", co, phi, tm, cb, phase="lidar", **kw))
+        closest_equals_exact("lidar", f"capture bounce {i} (live lanes "
+                             f"{int((tm > 0).sum())})", co, phi, tm, cb,
+                             False, ik.BLOCK == ik.EXACT_BLOCK)
     for i, ((co, phi, tm, cb), kw, hit) in enumerate(anyq):
         f = fan_lanes(phi, tm, s.cam, CAM_ORIGIN)
         fan.append((int(f.sum()), int((hit & f).sum())))
         errs["any_hit"] = max(errs["any_hit"], check_any(
             ik, f"capture bounce {i} (fan lanes {fan[-1][0]}, of them "
             f"occluded {fan[-1][1]})", co, phi, tm, cb, phase="lidar", **kw))
-        any_equals_k1("lidar", f"capture bounce {i}", co, phi, tm, cb, False)
+        any_equals_exact("lidar", f"capture bounce {i}", co, phi, tm, cb, False)
     log("lidar", f"K1/K3 held to the plain versions on {len(closest)} "
         f"bounces of a 1-spp {LIDAR_W}x{LIDAR_H} frame: "
         f"{closest[0][0][1].shape[1]} closest rays and "
@@ -1026,12 +1195,25 @@ def check_capture_queries(ik, integrator, s, card, errs):
         f"fan, on {card}")
     if fan[0][0] == 0:
         raise AssertionError("no shadow lane of the capture aims at the fan")
+    from tracer_tpu_torch.utils import kernel_timing
+    (co, phi, tm, cb), _, _ = closest[0]
+    t = kernel_timing.kernel_times("closest", co, phi, tm, cb, False)
+    t["bound_ms"], t["bound_by"] = query_bound(
+        ik, "closest", "closest_hit at the capture's shapes", co, cb, phi,
+        tm, card, phase="lidar")
+    log("lidar", f"time closest_hit at the capture's shapes: wrapper "
+        f"{t['ms']:.4f} ms, launch alone {t['alone_ms']:.4f} ms = "
+        f"{100 * t['bound_ms'] / t['alone_ms']:.1f}% of its bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}) (median of {TIME_ROUNDS} "
+        f"rounds of {TIME_CALLS} back-to-back calls, {phi.shape[1]} primary "
+        f"rays, every lane live, on {card})")
+    return t
 
 
 def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
     """The reference's demo-save capture through the entry points, and the
     checks of the LiDAR and flash sensors. Returns the capture's
-    launches."""
+    launches and K1's times at the capture's shapes."""
     import torch
     from tracer_tpu_torch.engine import keys
     tris, tm, mats = scene_arrays
@@ -1075,7 +1257,7 @@ def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
             or max(plain.values()) != 0):
         raise AssertionError("the capture did not run through K1 and K3")
     del pts
-    check_capture_queries(ik, integrator, s, card, errs)
+    capture_k1 = check_capture_queries(ik, integrator, s, card, errs)
     torch.cuda.empty_cache()
 
     # a 32x32 8-spp capture on the card against the same on the CPU
@@ -1123,7 +1305,7 @@ def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
 
     phase_breakdown(integrator, ik, s, card, ("closest_hit", "any_hit"),
                     phase="lidar")
-    return launches
+    return launches, capture_k1
 
 
 def main():
@@ -1166,8 +1348,13 @@ def main():
         log("build", f"cuobjdump -sass {k}: {code[k][0]} instructions "
             f"(digest {code[k][1]}), shared-memory loads {c}")
     check_wide_loads(loads)
+    lib = ik.build()
+    log("build", f"K1: {ik.BLOCK} lanes per block, at least "
+        f"{lib.closest_min_blocks()} blocks per SM; exact kernel "
+        f"{ik.EXACT_BLOCK} lanes, K2 {ik.STREAMED_CLOSEST_BLOCK}, K3 "
+        f"{ik.ANY_BLOCK}, K4 {ik.STREAMED_ANY_BLOCK}")
 
-    errs = dict.fromkeys(VARIANTS, 0.0)
+    errs = dict.fromkeys(VARIANTS + (EXACT,), 0.0)
     scene_arrays, scene_name = load_cornell()
     s = T.init(0, SIZE, SIZE, 0, *scene_arrays, cam_origin=CAM_ORIGIN,
                device=device)
@@ -1179,7 +1366,8 @@ def main():
     s, launches, cornell_mean = phase_main(T, integrator, ik, scene_arrays,
                                            card, device)
     phase_reference(T, scene_arrays, device)
-    phase_breakdown(integrator, ik, s, card, ("closest_hit", "any_hit"))
+    phase_breakdown(integrator, ik, s, card, ("closest_hit", "any_hit"),
+                    one_chunk=True)
     del s
     torch.cuda.empty_cache()
     big_launches, times = phase_bigscene(T, integrator, ik, intersect, card,
@@ -1189,9 +1377,11 @@ def main():
     torch.cuda.empty_cache()
     k5 = phase_recip(device, card)
     torch.cuda.empty_cache()
-    lidar_launches = phase_lidar(T, integrator, ik, scene_arrays, card,
-                                 device, errs)
+    lidar_launches, capture_k1 = phase_lidar(T, integrator, ik, scene_arrays,
+                                             card, device, errs)
     log("lidar", f"capture launches {lidar_launches}")
+    cornell["closest_hit"].update(
+        {f"capture_{f}": v for f, v in capture_k1.items()})
 
     fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms", "timed_at", "host_us",
@@ -1201,7 +1391,10 @@ def main():
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": errs[k], **times[k],
                 **{f"cornell_{f}": v for f, v in cornell.get(k, {}).items()}}
-               for k in VARIANTS]
+               for k in VARIANTS + (EXACT,)]
+    # the exact kernel is a check, not a kernel of the path: its one
+    # launch in the main path's window is the smoke run's own
+    kernels[-1]["on_path"] = False
     kernels.append({"name": "approx_reciprocal_kernel", "route": "cuda",
                     "source": "tracer_tpu_torch/csrc/recip.cu",
                     "replaces": "benchmarks/measure_recip.py:30",

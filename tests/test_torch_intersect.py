@@ -195,10 +195,14 @@ def test_cpu_tensors_run_plain_versions_only():
     phi = tint.ray_features_t(_v3t(o), _v3t(d))
     ik.closest_hit(td.coeffs, phi, 1e30, td.chunk_bounds, stream=True)
     ik.any_hit(td.coeffs, phi, 4.0, td.chunk_bounds, stream=True)
-    zero = dict.fromkeys(ik.VARIANTS, 0)
+    bt, bi = ik.closest_hit_exact(td.coeffs, phi, 1e30, td.chunk_bounds)
+    rt, ri = ik.closest_hit_ref(td.coeffs, phi, 1e30, td.chunk_bounds)
+    assert torch.equal(bt, rt) and torch.equal(bi, ri)
+    zero = dict.fromkeys(ik.KERNELS, 0)
     assert ik.launches == zero
     assert ik.plain_calls == dict(zero, closest_hit=1, any_hit=1,
-                                  closest_hit_streamed=1, any_hit_streamed=1)
+                                  closest_hit_streamed=1, any_hit_streamed=1,
+                                  closest_hit_exact=1)
     with pytest.raises(ValueError):
         ik.closest_hit(td.coeffs, torch.zeros((9, 4)), 1.0, td.chunk_bounds)
     with pytest.raises(ValueError):
@@ -220,25 +224,32 @@ def test_stats_and_prepared_launch_need_the_card():
             with pytest.raises(ValueError):
                 call(td.coeffs, phi, 1e30, td.chunk_bounds, stream=stream,
                      stats=torch.zeros(2, dtype=torch.int64))
-    for query in ("closest", "any", "nearest"):
+    for query in ("closest", "any", "exact", "nearest"):
         with pytest.raises(ValueError):
             ik.prepared_launch(query, td.coeffs, phi, 1e30, td.chunk_bounds)
-    assert ik.launches == dict.fromkeys(ik.VARIANTS, 0)
-    assert ik.plain_calls == dict.fromkeys(ik.VARIANTS, 0)
+    with pytest.raises(ValueError, match="no streamed variant"):
+        ik.prepared_launch("exact", td.coeffs, phi, 1e30, td.chunk_bounds,
+                           stream=True)
+    assert ik.launches == dict.fromkeys(ik.KERNELS, 0)
+    assert ik.plain_calls == dict.fromkeys(ik.KERNELS, 0)
     assert ik.variant_name("closest", True) == "closest_hit_streamed"
+    assert ik.variant_name("exact", False) == ik.EXACT == "closest_hit_exact"
+    assert ik.KERNELS == ik.VARIANTS + (ik.EXACT,)
     assert ik.BLOCKS == {"closest_hit": ik.BLOCK,
                          "closest_hit_streamed": ik.STREAMED_CLOSEST_BLOCK,
                          "any_hit": ik.ANY_BLOCK,
-                         "any_hit_streamed": ik.STREAMED_ANY_BLOCK}
+                         "any_hit_streamed": ik.STREAMED_ANY_BLOCK,
+                         "closest_hit_exact": ik.EXACT_BLOCK}
 
 
-@pytest.mark.parametrize("name", ik.VARIANTS)
+@pytest.mark.parametrize("name", ik.KERNELS)
 def test_operand_rules_of_each_kernel(name):
     """What a kernel takes of its operands, checked before any launch: the
     resident kernels stage a whole chunk in 48 KB (at most 307 triangles),
-    the streamed ones stage pieces of a chunk of any size; every kernel
-    but K1 copies 8-byte pieces and needs coeffs 8-byte aligned (a float32
-    view one element into its storage is not); operands are contiguous."""
+    the streamed ones stage pieces of a chunk of any size; K1-K4 copy
+    8-byte pieces and need coeffs 8-byte aligned (a float32 view one
+    element into its storage is not), the exact kernel stages through
+    registers and does not; operands are contiguous."""
     streamed = name.endswith("_streamed")
     assert ik.MAX_CHUNK_T == {"resident": 307, "streamed": None}
     phi, tmax = torch.zeros((10, 4)), torch.ones(4)
@@ -257,7 +268,7 @@ def test_operand_rules_of_each_kernel(name):
         operands(307)
         with pytest.raises(ValueError, match="exceeds the resident"):
             operands(308)
-    if name == "closest_hit":
+    if name == ik.EXACT:
         operands(256, offset=1)
     else:
         with pytest.raises(ValueError, match="8-byte aligned"):
@@ -424,8 +435,8 @@ def test_streamed_closest_matches_plain_on_card(case, cuda_device):
 @pytest.mark.parametrize("case", ["random5_max_sched3", "sub5_streamed"])
 def test_streamed_any_matches_plain_on_card(case, cuda_device):
     """K4 (warp-granular cull, triangle-major stage, a stopping walk)
-    against the plain version outside the boundary band, against K1's
-    hits on every lane, and its stats within the plain model's bracket
+    against the plain version outside the boundary band, against the exact
+    kernel's hits on every lane, and its stats within the plain model's bracket
     (kernel_cases.cull_pairs at unstopped_bound and at tmax); K3 gives
     the same hits and takes no stats."""
     if case == "random5_max_sched3":
@@ -448,8 +459,7 @@ def test_streamed_any_matches_plain_on_card(case, cuda_device):
     hit = ik.any_hit(co, phi, tmax, cb, stream=True, max_sched=max_sched,
                      stats=stats)
     ref = ik.any_hit_ref(co, phi, tmax, cb)
-    bt, _ = ik.closest_hit(co, phi, tmax, cb, stream=False,
-                           max_sched=max_sched)
+    bt, _ = ik.closest_hit_exact(co, phi, tmax, cb, max_sched=max_sched)
     torch.cuda.synchronize()
     assert ik.launches["any_hit_streamed"] == before + 1
     edge, _ = kc.boundary_lanes(co, phi, tmax, cb)
@@ -467,3 +477,100 @@ def test_streamed_any_matches_plain_on_card(case, cuda_device):
                                   max_sched=max_sched), hit)
     with pytest.raises(ValueError):
         ik.any_hit(co, phi, tmax, cb, stream=False, stats=stats)
+
+
+def _mixed_tmax(n, device):
+    """Live (1e30 and 4), dead (0) and NaN lanes scattered through every
+    warp."""
+    i = np.arange(n)
+    t = np.where(i % 5 == 1, 0.0, np.where(i % 7 == 3, np.nan,
+                                           np.where(i % 3 == 0, 4.0, 1e30)))
+    return torch.as_tensor(t.astype(np.float32), device=device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["cornell_one_chunk", "random5",
+                                  "random5_max_sched3", "sub5_resident",
+                                  "ragged_tail"])
+def test_k1_matches_exact_kernel_on_card(case, cuda_device):
+    """K1 (warp-granular cull, triangle-major stage, divide for
+    candidates, tiles longest schedule first) against the exact yardstick
+    kernel on every lane: best_t bit for bit and, both walking 256-lane
+    tiles, best_i too; under a scalar tmax and under a per-lane tmax with
+    dead (0) and NaN lanes, which give (+inf, 0). cornell_one_chunk has no
+    schedule (tiles is null); ragged_tail has 1 and 257 lanes, the last
+    block mostly past N."""
+    max_sched = ik.MAX_SCHED
+    if case == "cornell_one_chunk":
+        import tracer_tpu_torch as T
+        from tracer_tpu_torch.utils import testscenes as ts
+        s = T.init(0, 48, 40, 0, *ts.cornell_like(),
+                   cam_origin=(0.0, 0.8, 1.8), device=cuda_device)
+        _, (bo, bd), _ = kc.render_rays(s)
+        dense, phi = s.scene.accel, tint.ray_features_t(bo, bd)
+        co, cb = dense.coeffs, dense.chunk_bounds
+        assert cb.shape[0] == 1
+        assert ik.walk_operands("closest_hit", phi, 1e30, cb)[2:] == (
+            None, None, None)
+    elif case == "sub5_resident":
+        dense, phi = _sub5_case(cuda_device)
+        co, cb = dense.coeffs, dense.chunk_bounds
+    else:
+        _, jd, o, d = _case("chunks5")
+        td = _dense_t(jd).to(cuda_device)
+        co, cb = td.coeffs, td.chunk_bounds
+        phi = tint.ray_features_t(_v3t(o).to(cuda_device),
+                                  _v3t(d).to(cuda_device))
+        if case == "random5_max_sched3":
+            max_sched = 3
+    sets = [phi]
+    if case == "ragged_tail":
+        sets = [phi[:, :1].contiguous(), phi[:, :257].contiguous()]
+    assert ik.BLOCK == ik.EXACT_BLOCK
+    for p in sets:
+        n = p.shape[1]
+        mixed = _mixed_tmax(n, cuda_device)
+        for tmax in (torch.full((n,), 1e30, device=cuda_device), mixed):
+            before = (ik.launches["closest_hit"], ik.launches[ik.EXACT])
+            bt, bi = ik.closest_hit(co, p, tmax, cb, stream=False,
+                                    max_sched=max_sched)
+            et, ei = ik.closest_hit_exact(co, p, tmax, cb,
+                                          max_sched=max_sched)
+            rt, _ = ik.closest_hit_ref(co, p, tmax, cb)
+            torch.cuda.synchronize()
+            assert (ik.launches["closest_hit"], ik.launches[ik.EXACT]) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(bt.view(torch.int32), et.view(torch.int32))
+            assert torch.equal(bi, ei)
+            edge, _ = kc.boundary_lanes(co, p, tmax, cb)
+            keep = ~edge
+            assert torch.equal(torch.isfinite(bt)[keep],
+                               torch.isfinite(rt)[keep])
+            both = keep & torch.isfinite(bt) & torch.isfinite(rt)
+            torch.testing.assert_close(bt[both], rt[both], rtol=1e-5, atol=0)
+        off = ~(mixed > 0)
+        assert bool(off.any()) or n == 1
+        assert bool(torch.isinf(bt[off]).all()) and not bool(bi[off].any())
+
+
+@pytest.mark.requires_cuda
+def test_dead_blocks_and_sorted_closest_on_card(cuda_device):
+    """A closest query whose per-lane tmax leaves whole warps and whole
+    blocks dead (the dead lanes first, as closest_hit_phi orders them)
+    gives the scalar-tmax result on the live lanes and (+inf, 0) on the
+    dead ones, through K1 and K2, sorted by octant or by odmorton."""
+    dense, phi = _sub5_case(cuda_device)
+    n = phi.shape[1]
+    tmax = torch.where(torch.arange(n, device=cuda_device) % 4 == 0, 1e30,
+                       0.0).to(torch.float32)
+    live = tmax > 0
+    for stream in (False, True):
+        want_t, _ = ik.closest_hit_exact(dense.coeffs, phi, 1e30,
+                                         dense.chunk_bounds)
+        for perm in ("off", "oct", "odmorton"):
+            bt, bi = tint.closest_hit_phi(dense, tmax, phi, perm=perm,
+                                          stream=stream)
+            assert torch.equal(bt[live].view(torch.int32),
+                               want_t[live].view(torch.int32))
+            assert bool(torch.isinf(bt[~live]).all())
+            assert not bool(bi[~live].any())

@@ -1,6 +1,6 @@
-"""Port parity: scene assembly (build_scene) and closest_interaction of
-tracer_tpu_torch against the JAX package on the Cornell and prism
-scenes."""
+"""Port parity: scene assembly (build_scene, add_point_light) and
+closest_interaction of tracer_tpu_torch against the JAX package on the
+Cornell and prism scenes."""
 
 import numpy as np
 import jax
@@ -11,9 +11,12 @@ import torch
 import tracer_tpu as J
 from tracer_tpu.models import camera as jcam, scene as jscene
 from tracer_tpu.ops import rng as jrng
+from tracer_tpu.ops import spectrum as jspec
 from tracer_tpu.utils import testscenes
 from tracer_tpu_torch.models import camera as tcam, scene as tscene
+import tracer_tpu_torch as T
 from tracer_tpu_torch.ops import rng as trng, shapes as tshapes
+from tracer_tpu_torch.ops import spectrum as tspec
 from tracer_tpu_torch.utils import convert
 
 torch.set_num_threads(2)
@@ -80,3 +83,72 @@ def test_closest_interaction(name):
                  (ji.emission_at_wl, ti.emission_at_wl), *zip(ji.mat, ti.mat)]:
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-5,
                                    atol=1e-5)
+
+
+def _dark_cornell():
+    tris, tm, mats = testscenes.cornell_like()
+    mats = mats.copy()
+    mats[4, 16:28] = [-1, 0] * 6  # no area light
+    return tris, tm, mats
+
+
+@pytest.mark.parametrize("name", ["cornell", "prism", "dark"])
+def test_add_point_light_matches_jax(name):
+    """add_point_light appends the same light as the JAX package's: the
+    lights and the packed light table are equal, on a scene with area
+    lights and on one with none; every other tensor is shared with the
+    scene it was given."""
+    tris, tm, mats = (_dark_cornell() if name == "dark"
+                      else SCENES[name][0]())
+    emission = jspec.map_intensities(lambda i: i * 8.0,
+                                     jspec.uniform_spectrum(1.0))
+    np.testing.assert_array_equal(
+        tspec.map_intensities(lambda i: i * 8.0, tspec.uniform_spectrum(1.0)),
+        emission)
+    pos = (0.0, 1.5, 0.3)
+    js = jscene.add_point_light(jscene.build_scene(tris, tm, mats), pos,
+                                emission)
+    base = tscene.build_scene(tris, tm, mats, device="cpu")
+    ts = tscene.add_point_light(base, pos, emission)
+    assert ts.lights.count == base.lights.count + 1 == js.lights.count
+    for f in ("kind", "tri", "theta", "emission"):
+        got = getattr(ts.lights, f)
+        assert got.dtype == getattr(base.lights, f).dtype
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(js.lights, f)))
+    np.testing.assert_array_equal(ts.light_table.numpy(),
+                                  np.asarray(js.light_table))
+    assert ts.light_table.shape == (ts.lights.count, 23)
+    assert ts.accel is base.accel and ts.tris is base.tris
+    assert ts.tri_mat is base.tri_mat and ts.mat_rows is base.mat_rows
+    assert base.lights.count == (0 if name == "dark" else js.lights.count - 1)
+    # a second light stacks on the first
+    ts2 = tscene.add_point_light(ts, (0.5, 0.5, 0.0), emission)
+    assert ts2.lights.count == ts.lights.count + 1
+    np.testing.assert_array_equal(ts2.light_table[:-1].numpy(),
+                                  ts.light_table.numpy())
+
+
+def test_point_light_api():
+    """The twin of the JAX package's test of the same name: a point light
+    illuminates an otherwise dark box, through init -> sample_n_frames on
+    the CPU, and the lit image agrees with the JAX package's in the mean."""
+    import dataclasses
+    tris, tm, mats = _dark_cornell()
+    emission = tspec.map_intensities(lambda i: i * 8.0,
+                                     tspec.uniform_spectrum(1.0))
+    s = T.init(0, 12, 12, 0, tris, tm, mats, cam_origin=(0.0, 0.8, 1.8),
+               device="cpu")
+    dark = T.sample_n_frames(s, 16).numpy()
+    s2 = dataclasses.replace(
+        s, scene=tscene.add_point_light(s.scene, (0.0, 1.5, 0.3), emission))
+    lit = T.sample_n_frames(s2, 16).numpy()
+    assert dark.mean() < 1e-4
+    assert lit.mean() > 0.01
+    js = J.init(0, 12, 12, 0, tris, tm, mats, cam_origin=(0.0, 0.8, 1.8))
+    js2 = js.replace(scene=jscene.add_point_light(js.scene, (0.0, 1.5, 0.3),
+                                                  emission))
+    lit_j = np.asarray(J.sample_n_frames(js2, 16))
+    px_ok = np.isclose(lit, lit_j, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert px_ok.mean() >= 0.97, np.argwhere(~px_ok)
+    assert abs(lit.mean() - lit_j.mean()) <= 1e-2 * lit_j.mean()

@@ -62,6 +62,22 @@ def test_cornell_like_matches_jax():
         np.testing.assert_array_equal(t, j)
 
 
+@pytest.mark.parametrize("name", ["prism_scene", "single_triangle"])
+def test_test_scenes_match_jax(name):
+    """prism_scene and single_triangle give the JAX package's arrays,
+    array for array (triangles, material ids, material rows)."""
+    got, want = getattr(tscenes, name)(), getattr(jscenes, name)()
+    assert len(got) == len(want) == 3
+    for t, j in zip(got, want):
+        assert t.dtype == j.dtype and t.shape == j.shape
+        np.testing.assert_array_equal(t, j)
+    if name == "single_triangle":
+        mat = tscenes.mat_row(kd=(0.1, 0.2, 0.3), roughness=0.5)
+        for t, j in zip(tscenes.single_triangle(mat),
+                        jscenes.single_triangle(mat)):
+            np.testing.assert_array_equal(t, j)
+
+
 @pytest.mark.parametrize("levels", [0, 1, 2])
 def test_subdivide_matches_jax(levels):
     tris, tm, _ = jscenes.cornell_like()

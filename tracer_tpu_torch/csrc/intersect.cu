@@ -1,6 +1,6 @@
 // Dense ray-triangle intersection kernels for Hopper (sm_90a).
 //
-// All four kernels test rays against the triangles of a scene built by
+// All the kernels test rays against the triangles of a scene built by
 // tracer_tpu_torch/ops/intersect.py:build_dense: per-triangle Moller
 // coefficients (4, T_pad, 10) that are linear in the ray features
 // phi = [d, o, o x d, 1] (10, N), grouped in chunks of chunk_t morton-
@@ -12,15 +12,17 @@
 //   closest_hit_streamed_kernel  replaces _closest_kernel_streamed (K2)
 //   any_hit_kernel               replaces _any_kernel              (K3)
 //   any_hit_streamed_kernel      replaces _any_kernel_streamed     (K4)
-// all in tracer_tpu/ops/pallas/intersect_kernel.py.
+// all in tracer_tpu/ops/pallas/intersect_kernel.py, and
+//   closest_hit_exact_kernel     the yardstick the four are held against:
+//                                K1's function by the plainest walk.
 //
-// One thread owns one ray. A block is the ray tile: kBlock = 256 lanes
-// (K1), kAnyBlock (K3), kStreamedClosestBlock (K2) or kStreamedAnyBlock
-// (K4). It walks its tile's near-to-far schedule, order[tile,
-// :count[tile]] (ops/intersect_kernel.py:tile_chunk_order, built per
-// block; tile = blockIdx.x unless the launch orders its blocks), whose
-// entries are superchunks of g morton-consecutive chunks (g = 1: single
-// chunks). A null schedule walks every superchunk in index order. At g > 1
+// One thread owns one ray. A block is the ray tile: kBlock lanes (K1),
+// kAnyBlock (K3), kStreamedClosestBlock (K2), kStreamedAnyBlock (K4) or
+// kExactBlock (the yardstick). It walks its tile's near-to-far schedule,
+// order[tile, :count[tile]] (ops/intersect_kernel.py:tile_chunk_order,
+// built per block; tile = blockIdx.x unless the launch orders its blocks),
+// whose entries are superchunks of g morton-consecutive chunks (g = 1:
+// single chunks). A null schedule walks every superchunk in index order. At g > 1
 // the walk is two-level, as in the TPU kernels: the superchunk's union box
 // is slab-tested at each lane's current bound and skipped when no lane can
 // reach it; then each member chunk is culled the same way. The cull
@@ -29,15 +31,22 @@
 // with a NaN feature or tmax can hit nothing and takes no part in the
 // walk: the TPU kernel's min/max carry the NaN into its slab test, which
 // then fails, whereas fminf/fmaxf here would drop it and pass every box.
+// Nor does a lane with tmax <= 0 (a dead lane of the path tracer, or a
+// shadow lane with no light to test): t < tmax fails for every t > 0, so
+// it reads no features and votes no, and a warp or block of such lanes
+// copies and scans nothing. The miss is (+inf, 0) either way.
 //
-// K1 is the exact-path yardstick (walk_resident): it stages each chunk it
-// visits synchronously and row-major in shared memory (4 * chunk_t * 10
-// f32, 40 KB at chunk_t = 256), culls through the block-wide vote alone,
-// as the TPU kernel's per-tile jnp.any(_chunk_cull(...)) (a lane whose own
-// test fails still scans a chunk its neighbours need), reads a triangle
-// with 20 ld.shared.v2 and takes the IEEE divide on every (lane, triangle).
+// The yardstick (closest_hit_exact_kernel, walk_resident) is the exact path
+// in its plainest form: it stages each chunk it visits synchronously and
+// row-major in shared memory (4 * chunk_t * 10 f32, 40 KB at chunk_t =
+// 256), culls through the block-wide vote alone, as the TPU kernel's
+// per-tile jnp.any(_chunk_cull(...)) (a lane whose own test fails still
+// scans a chunk its neighbours need), reads a triangle with 20
+// ld.shared.v2 and takes the IEEE divide on every (lane, triangle). The
+// path tracer never launches it; the smoke run and the card tests hold
+// K1 and K2 to its best t bit for bit and K3 and K4 to its hits.
 //
-// K2, K3 and K4 are redesigned for Hopper, where 32 lanes, not the whole
+// K1, K2, K3 and K4 are designed for Hopper, where 32 lanes, not the whole
 // tile, execute together:
 // - Warp-granular cull. The same votes at the same points decide, per
 //   warp (__any_sync over Q::wants), whether the warp scans the
@@ -51,7 +60,7 @@
 //   filled with 8-byte cp.async.ca pieces read in global-memory order; the
 //   scan reads a triangle with 10 ld.shared.v4 (all lanes of a warp on
 //   one address, a broadcast). dot10's order of summation is kept, so t is
-//   bit for bit K1's.
+//   bit for bit the yardstick's.
 // - Divide only for candidates: a triangle is rejected from
 //   rcp.approx.ftz (K5's instruction, max rel error 2^-23.28 on the H100)
 //   with a relative slack of 2^-19, first from a and n.s alone (behind
@@ -81,28 +90,33 @@
 // and the (warp, chunk) scans run; it is null on the main path, where the
 // counting is compiled out.
 //
-// K3 and K4 take an order of their tiles from the launcher (block b works
-// tile tiles[b]: the tiles with the longest schedules first). Blocks
+// Every kernel but the yardstick takes an order of its tiles from the
+// launcher (block b works tile tiles[b]: the tiles with the longest
+// schedules first). Blocks
 // start in index order and a tile's walk is as long as its schedule; a
 // shadow tile's is 8 entries in the mean and up to 36 on cornell-sub6, so
 // in index order the card ends on a few long walks started last (K4 alone
 // on that scene's 524,288 shadow lanes, on an H100 at 700 W: 7.01 ms in
 // index order, 5.50 ms longest first).
 //
-// K3 (resident, walk_resident_warp) keeps a whole chunk per barrier and no
-// ring: its main path is the one-chunk box, where a ring buys nothing. It
-// fills its one slot through the streamed kernels' copy (issue_piece over
-// the whole chunk, then a wait) rather than a transposing store from
-// registers: the 8-byte pieces land triangle-major without passing
-// through registers or conflicting on banks, and the routine is the one
-// K2 and K4 already exercise.
+// K1 and K3 (resident, walk_resident_warp) keep a whole chunk per barrier
+// and no ring: their main path is the one-chunk box, where a ring buys
+// nothing. They fill their one slot through the streamed kernels' copy
+// (one piece spanning the whole chunk, then a wait) rather than a
+// transposing store from registers: the 8-byte pieces land triangle-major
+// without passing through registers or conflicting on banks, and the
+// routine is the one K2 and K4 already exercise. K1 has no early stop: a
+// lane's bound min(tmax, best_t) tightens as it scans, so the first stage
+// of the rejection ends most of the tests behind its first hit, and every
+// kept t goes through moller_t, the yardstick's own arithmetic.
 //
 // Per lane and triangle a scan evaluates a, n.s, m.e2, m.e1 as 10-term
 // f32 dot products, then the exact IEEE divide of the plain version
 // (intersect_kernel.py:_chunk_scores). No fast math: nvcc may contract
 // mul+add into FMA, so t differs from the plain version by a few ulps.
 // The merge is a strict <, so within one chunk the lowest index wins a
-// tie; across chunks an exact-t tie goes to the chunk visited first.
+// tie; across chunks an exact-t tie goes to the chunk visited first, which
+// depends on the tile's schedule and so on the lanes per block.
 //
 // What bounds the kernels on an H100 is not measured (Nsight Compute does
 // not run where the card is). A lane reads 44 bytes of features and tmax
@@ -110,9 +124,10 @@
 // chunk_t * 160 bytes of coefficient reads, from L2 for the 14.4 MB of a
 // 90k-triangle scene. Per lane and triangle the full scan runs 40 FMAs,
 // the divide and the validity tests, and reads the coefficients with 20
-// LDS.64 (K1) or 10 LDS.128 (K2-K4, 5 for a triangle rejected at the
-// first stage), as cuobjdump -sass shows them. The schedule and the culls
-// decide how many chunks are scanned at all.
+// LDS.64 (the yardstick) or 10 LDS.128 (K1-K4, 5 for a triangle rejected
+// at the first stage), as cuobjdump -sass shows them. The schedule and the
+// culls decide how many chunks are scanned at all; K1's lanes per block and
+// blocks per SM are measured (PERF.md), as K2's, K3's and K4's are.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,6 +135,8 @@
 namespace {
 
 constexpr int kBlock = 256;                   // K1's lanes per block
+constexpr int kClosestMinBlocks = 4;          // K1's blocks per SM, at least
+constexpr int kExactBlock = 256;              // the yardstick's lanes per block
 constexpr int kAnyBlock = 256;                // K3's lanes per block
 constexpr int kAnyMinBlocks = 4;              // K3's blocks per SM, at least
 constexpr int kStreamedClosestBlock = 64;     // K2's lanes per block
@@ -266,7 +283,8 @@ __device__ __forceinline__ void load_rows(float* c, const float4* s4, int j,
 }
 
 // Per-lane state of a closest-hit query: the running (best_t, best_i).
-// A lane that is not active (past n, or NaN) keeps the miss.
+// A lane that is not active (past n, tmax <= 0, or NaN) keeps the miss.
+// The kernel names the lane, which follows the tile its block was given.
 struct Closest {
     static constexpr bool kStops = false;
     float p[10];
@@ -275,10 +293,9 @@ struct Closest {
     bool active;
 
     __device__ void load(const float* __restrict__ phi,
-                         const float* __restrict__ tmax, int n) {
-        const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+                         const float* __restrict__ tmax, int n, int lane) {
         tm = lane < n ? __ldg(tmax + lane) : 0.0f;
-        active = lane < n && load_features(p, phi, n, lane, tm);
+        active = lane < n && tm > 0.0f && load_features(p, phi, n, lane, tm);
         bt = inf_f();
         bi = 0;
     }
@@ -368,9 +385,9 @@ struct AnyHit {
 };
 
 // The tile of lanes a block works and whose schedule it walks: its own
-// index, or tiles[blockIdx.x] where the launch orders its blocks (K3, K4:
-// the tiles with the longest schedules first, so that the card does not
-// end on a few long walks started last).
+// index, or tiles[blockIdx.x] where the launch orders its blocks (the
+// tiles with the longest schedules first, so that the card does not end on
+// a few long walks started last).
 __device__ __forceinline__ unsigned block_tile(
         const int32_t* __restrict__ tiles) {
     return tiles ? (unsigned)__ldg(tiles + blockIdx.x) : blockIdx.x;
@@ -394,7 +411,7 @@ __device__ __forceinline__ bool block_wants(const Q& q,
 }
 
 // ---------------------------------------------------------------------------
-// Resident walk (K1): stage each visited chunk synchronously, row-major;
+// The yardstick's walk: stage each visited chunk synchronously, row-major;
 // the cull acts through the block-wide vote alone.
 
 __device__ __forceinline__ void stage_chunk(float* sh, const Walk& w,
@@ -426,9 +443,6 @@ __device__ void walk_resident(Q& q, const Walk& w, float* sh) {
     const int total = sched_len(w, blockIdx.x);
     const int32_t* ids = sched_row(w, blockIdx.x);
     for (int r = 0; r < total; ++r) {
-        if constexpr (Q::kStops) {
-            if (!__syncthreads_or(!q.done())) break;
-        }
         const int si = ids ? __ldg(ids + r) : r;
         if (w.g == 1) {
             visit_resident(q, w, sh, si);
@@ -441,8 +455,8 @@ __device__ void walk_resident(Q& q, const Walk& w, float* sh) {
 }
 
 // ---------------------------------------------------------------------------
-// Walks with a warp-granular cull (K2, K3, K4): the copy is block-wide, the
-// scan per warp; chunks staged triangle-major by cp.async.
+// Walks with a warp-granular cull (K1-K4): the copy is block-wide, the scan
+// per warp; chunks staged triangle-major by cp.async.
 
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -640,7 +654,7 @@ __device__ void walk_warp(Q& q, const Walk& w, unsigned tile, float* slots,
     }
 }
 
-// Resident (K3): one slot holds the whole chunk, copied and waited for
+// Resident (K1, K3): one slot holds the whole chunk, copied and waited for
 // between two barriers; a warp scans it when one of its lanes wants it.
 template <class Q>
 __device__ void walk_resident_warp(Q& q, const Walk& w, unsigned tile,
@@ -671,15 +685,35 @@ __device__ void walk_resident_warp(Q& q, const Walk& w, unsigned tile,
 // ---------------------------------------------------------------------------
 // Kernels. best_t is +inf and best_i 0 on a miss; hit is 0 or 1.
 
-__global__ void __launch_bounds__(kBlock)
-closest_hit_kernel(Walk w, const float* __restrict__ phi,
+__global__ void __launch_bounds__(kBlock, kClosestMinBlocks)
+closest_hit_kernel(Walk w, const int32_t* __restrict__ tiles,
+                   const float* __restrict__ phi,
                    const float* __restrict__ tmax, int n,
                    float* __restrict__ best_t, int32_t* __restrict__ best_i) {
     extern __shared__ __align__(16) float sh[];
+    const unsigned tile = block_tile(tiles);
+    const int lane = tile * blockDim.x + threadIdx.x;
     Closest q;
-    q.load(phi, tmax, n);
-    walk_resident(q, w, sh);
+    q.load(phi, tmax, n, lane);
+    walk_resident_warp(q, w, tile, sh);
+    if (lane < n) {
+        best_t[lane] = q.bt;
+        best_i[lane] = q.bi;
+    }
+}
+
+// The yardstick: block-wide cull, row-major stage, the divide on every
+// (lane, triangle); tiles in index order.
+__global__ void __launch_bounds__(kExactBlock)
+closest_hit_exact_kernel(Walk w, const float* __restrict__ phi,
+                         const float* __restrict__ tmax, int n,
+                         float* __restrict__ best_t,
+                         int32_t* __restrict__ best_i) {
+    extern __shared__ __align__(16) float sh[];
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    Closest q;
+    q.load(phi, tmax, n, lane);
+    walk_resident(q, w, sh);
     if (lane < n) {
         best_t[lane] = q.bt;
         best_i[lane] = q.bi;
@@ -691,17 +725,19 @@ closest_hit_kernel(Walk w, const float* __restrict__ phi,
 template <bool kStats>
 __global__ void __launch_bounds__(kStreamedClosestBlock,
                                   kStreamedClosestMinBlocks)
-closest_hit_streamed_kernel(Walk w, const float* __restrict__ phi,
+closest_hit_streamed_kernel(Walk w, const int32_t* __restrict__ tiles,
+                            const float* __restrict__ phi,
                             const float* __restrict__ tmax, int n,
                             float* __restrict__ best_t,
                             int32_t* __restrict__ best_i,
                             unsigned long long* __restrict__ stats) {
     extern __shared__ __align__(16) float sh[];
+    const unsigned tile = block_tile(tiles);
+    const int lane = tile * blockDim.x + threadIdx.x;
     Closest q;
-    q.load(phi, tmax, n);
+    q.load(phi, tmax, n, lane);
     WalkCounts<kStats> counts;
-    walk_warp<kPieceTris>(q, w, blockIdx.x, sh, counts);
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    walk_warp<kPieceTris>(q, w, tile, sh, counts);
     if (lane < n) {
         best_t[lane] = q.bt;
         best_i[lane] = q.bi;
@@ -774,8 +810,12 @@ bool stage_ok(const float* coeffs) { return (uintptr_t)coeffs % 8 == 0; }
 
 extern "C" {
 
-// Lanes per block, the tile of the chunk schedule, of K1, K2, K3 and K4.
+// Lanes per block, the tile of the chunk schedule, of K1, K2, K3, K4 and
+// the yardstick.
 int kernel_block() { return kBlock; }
+int exact_block() { return kExactBlock; }
+// K1's blocks per SM, at least (its __launch_bounds__ minimum).
+int closest_min_blocks() { return kClosestMinBlocks; }
 int streamed_closest_block() { return kStreamedClosestBlock; }
 int any_block() { return kAnyBlock; }
 int streamed_any_block() { return kStreamedAnyBlock; }
@@ -784,34 +824,56 @@ int streamed_any_block() { return kStreamedAnyBlock; }
 // (cudaGetLastError() after the launch). order/count are both null (walk
 // every superchunk in index order) or both set, built at the variant's
 // block; sbounds is read at g > 1. stats (K2 and K4 only) is null or (2,)
-// counts. tiles (K3, K4) is null or a permutation of the tiles, (grid,):
-// block b works tile tiles[b].
+// counts. tiles is null or a permutation of the tiles, (grid,): block b
+// works tile tiles[b]; the yardstick takes none.
 int closest_hit_launch(int streamed, const float* coeffs, const float* phi,
                        const float* tmax, const float* bounds,
                        const float* sbounds, const int32_t* order,
                        const int32_t* count, int n, int t_pad, int n_chunks,
-                       int chunk_t, int g, int n_super, float* best_t,
-                       int32_t* best_i, unsigned long long* stats,
-                       void* stream) {
+                       int chunk_t, int g, int n_super, const int32_t* tiles,
+                       float* best_t, int32_t* best_i,
+                       unsigned long long* stats, void* stream) {
     Walk w;
     int err = make_walk(&w, coeffs, bounds, sbounds, order, count, n, t_pad,
                         n_chunks, chunk_t, g, n_super);
     if (err) return err;
+    if (!stage_ok(coeffs)) return (int)cudaErrorMisalignedAddress;
     if (streamed) {
-        if (!stage_ok(coeffs)) return (int)cudaErrorMisalignedAddress;
         const int grid = (n + kStreamedClosestBlock - 1) / kStreamedClosestBlock;
         const size_t smem = 2 * slot_bytes(min(chunk_t, kPieceTris));
         auto kernel = stats ? closest_hit_streamed_kernel<true>
                             : closest_hit_streamed_kernel<false>;
         kernel<<<grid, kStreamedClosestBlock, smem, (cudaStream_t)stream>>>(
-            w, phi, tmax, n, best_t, best_i, stats);
+            w, tiles, phi, tmax, n, best_t, best_i, stats);
     } else {
         if (stats) return (int)cudaErrorInvalidValue;
         const int grid = (n + kBlock - 1) / kBlock;
         closest_hit_kernel<<<grid, kBlock, slot_bytes(chunk_t),
                              (cudaStream_t)stream>>>(
-            w, phi, tmax, n, best_t, best_i);
+            w, tiles, phi, tmax, n, best_t, best_i);
     }
+    return (int)cudaGetLastError();
+}
+
+// The yardstick, resident only; the arguments of closest_hit_launch, of
+// which streamed must be 0 and tiles and stats null.
+int closest_hit_exact_launch(int streamed, const float* coeffs,
+                             const float* phi, const float* tmax,
+                             const float* bounds, const float* sbounds,
+                             const int32_t* order, const int32_t* count,
+                             int n, int t_pad, int n_chunks, int chunk_t,
+                             int g, int n_super, const int32_t* tiles,
+                             float* best_t, int32_t* best_i,
+                             unsigned long long* stats, void* stream) {
+    Walk w;
+    int err = make_walk(&w, coeffs, bounds, sbounds, order, count, n, t_pad,
+                        n_chunks, chunk_t, g, n_super);
+    if (err) return err;
+    if (streamed || tiles || stats) return (int)cudaErrorInvalidValue;
+    const int grid = (n + kExactBlock - 1) / kExactBlock;
+    closest_hit_exact_kernel<<<grid, kExactBlock, slot_bytes(chunk_t),
+                               (cudaStream_t)stream>>>(
+        w, phi, tmax, n, best_t, best_i);
     return (int)cudaGetLastError();
 }
 

@@ -81,12 +81,15 @@ def path_trace(state, scene: scene_mod.Scene, origin, d, wavelen, ambience,
     dist = torch.full((PATH_LEN, n), float("inf"), device=dev)
     rad = torch.zeros((PATH_LEN, n), device=dev)
     rays = 0
+    far = torch.as_tensor(shapes.F32_HIGHEST, dtype=torch.float32, device=dev)
     for i in range(PATH_LEN):
         live = int(alive.sum())   # host sync: the early exit
         if live == 0:
             break
+        # a dead lane queries at tmax 0: it hits nothing and the kernel
+        # leaves it out of its walk; every use of inter below is masked
         inter = scene_mod.closest_interaction(
-            scene, shapes.F32_HIGHEST, o, d, wavelen)
+            scene, torch.where(alive, far, 0.0), o, d, wavelen)
         hit = alive & inter.ok
         miss = alive & ~inter.ok
 

@@ -69,6 +69,28 @@ def pack_light_table(lights: lights_mod.Lights) -> torch.Tensor:
     ], dim=1)
 
 
+def add_point_light(scene: Scene, pos, emission) -> Scene:
+    """A scene with a point light appended to the light set (port of
+    tracer_tpu/models/scene.py:add_point_light). The loaders never emit
+    point lights; this is the API for them. pos: (3,) world position,
+    held by vertex 0 of a degenerate triangle; emission: (6, 2) spectrum
+    knots. The new scene shares every other tensor with `scene`."""
+    dev = scene.tris.device
+    old = scene.lights
+    pos = torch.as_tensor(np.asarray(pos, np.float32), device=dev)
+    knots = torch.as_tensor(np.asarray(emission, np.float32), device=dev)
+    lights = lights_mod.Lights(
+        kind=torch.cat([old.kind, torch.tensor(
+            [lights_mod.KIND_POINT], dtype=torch.int32, device=dev)]),
+        tri=torch.cat([old.tri, pos.expand(1, 3, 3)]),
+        theta=torch.cat([old.theta, torch.zeros((1,), device=dev)]),
+        emission=torch.cat([old.emission, knots.reshape(1, 6, 2)]))
+    return Scene(tris=scene.tris, mat_ix=scene.mat_ix,
+                 mat_rows=scene.mat_rows, tri_mat=scene.tri_mat,
+                 lights=lights, light_table=pack_light_table(lights),
+                 accel=scene.accel)
+
+
 def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
                 device) -> Scene:
     """Assemble a scene from loader arrays on `device`: tris (T, 3, 3) f32,

@@ -1,6 +1,7 @@
 """Build and load the hand-written kernels of csrc/ as one shared library.
 
-Every CUDA source under csrc/ (intersect.cu: K1-K4, recip.cu: K5) goes to
+Every CUDA source under csrc/ (intersect.cu: K1-K4 and their exact
+yardstick, recip.cu: K5) goes to
 one nvcc call, at first use, into build/tracer_tpu_torch/ beside the
 package, keyed on a hash of the flags and of every source; the library
 is loaded with ctypes and each kernel's wrapper module declares the
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -82,6 +84,29 @@ def build_info() -> dict:
     return {"seconds": _Built.seconds, "log": _Built.log,
             "sources": [p.name for p in sources()],
             "path": None if _Built.lib is None else _Built.lib._name}
+
+
+def kernel_resources() -> dict:
+    """What ptxas -v said of each kernel in the last build's log:
+    {mangled entry name: {"registers", "spill_stores", "spill_loads"}}
+    (bytes of spills per thread). Empty when load() found the library
+    already built."""
+    out, cur = {}, None
+    for line in _Built.log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def raw_stream(index: int) -> int:

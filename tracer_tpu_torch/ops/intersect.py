@@ -20,6 +20,19 @@ TPU package sorts only for its Pallas kernels; "off" never sorts; a key
 name always does. Results do not depend on the lane order, except which
 index wins an exact-t tie across chunks.
 
+Dead lanes: a lane whose per-lane tmax is <= 0 hits nothing (the path
+tracer's dead lanes, NEE's unused shadow lanes) and the kernels leave it
+out of the walk. Every sorted query keys such lanes first, so that they
+fill whole warps and blocks, which then copy and scan nothing; when the
+live lanes are too few to fill the card, they are dealt out over
+SPREAD_WARPS warps instead of packed into a few long walks. A query that
+is not sorted is not partitioned either: below PERM_AUTO_MIN_CHUNKS the
+sort, the gather and the two scatters cost more than the scan they save
+(on an NVIDIA H100 at 700 W, over the 16 bounces of a 512x512 Cornell
+frame: 3.48 ms against 0.96 ms for the wrapper on the lanes as they come;
+utils/kernel_timing.bounce_times, PERF.md), so there the kernel alone
+drops the dead lanes, warp by warp.
+
 The port is exact f32 everywhere: the TPU package's bf16 word packing
 and its Pallas switch are not ported.
 """
@@ -44,6 +57,14 @@ REINTERSECT_SLACK = 1e-6
 PERM_AUTO_MIN_CHUNKS = 16
 PERM_ANY_AUTO_MIN_CHUNKS = 2
 PERM_KEYS = ("oct", "dmorton", "odmorton")
+# A sorted query with dead lanes deals its live lanes out over at least
+# this many warps (lane_order); 0: pack them, dead lanes first. 4,096 is
+# about the warps an H100 holds of the streamed kernels (132 SMs x 16
+# blocks x 2 warps). Measured there at 700 W over the 16 bounces of a
+# 512x512 cornell-sub6 frame (utils/kernel_timing.spread_sweep, the whole
+# query with its sort and schedule): closest 151.6 ms packed, 123.1 at
+# 2,048, 111.6 at 4,096 and at 8,192; any hit 128.0, 108.6, 110.8, 115.2.
+SPREAD_WARPS = 4096
 
 
 class DenseTris(nn.Module):
@@ -223,28 +244,55 @@ def resolve_perm(perm: str, n_chunks: int, device, any_hit: bool = False):
 def lane_order(phi, tmax, chunk_bounds, mode: str, dead_first: bool = False):
     """The lane permutation of a sorted query: indices (N,) that sort the
     lanes by perm_key with a stable sort; dead_first keys the lanes with
-    tmax <= 0 as -1, so they come first."""
+    tmax <= 0 as -1, so they come first.
+
+    With dead_first and SPREAD_WARPS > 0: when the L live lanes would fill
+    fewer than SPREAD_WARPS warps, they are dealt out instead in key
+    order, k = ceil(L / SPREAD_WARPS) to a warp, each warp of 32 filled
+    up with dead lanes (as far as there are any), from lane 0 on; the
+    dead lanes left over follow. No host read: L and k stay on the
+    device. A block's walk is the union of its lanes' chunks and a launch
+    ends on its longest walk, so a few hundred live lanes packed into a
+    few blocks take as long as a full tile, and one to a warp a fraction
+    of it."""
     key = perm_key(phi, chunk_bounds, mode)
-    if dead_first:
-        key = torch.where(tmax > 0.0, key, -1)
-    return torch.sort(key, stable=True).indices
+    if not dead_first:
+        return torch.sort(key, stable=True).indices
+    live = tmax > 0.0
+    idx = torch.sort(torch.where(live, key, -1), stable=True).indices
+    if not SPREAD_WARPS:
+        return idx
+    n = phi.shape[1]
+    n_live = live.sum()
+    n_dead = n - n_live
+    k = torch.clamp((n_live + SPREAD_WARPS - 1) // SPREAD_WARPS, 1, 32)
+    rank = torch.arange(n, device=phi.device)
+    j = rank - n_dead                     # live rank of the sorted lanes
+    # dead rank r sorts at 2r + 1, the live lanes of warp w before the
+    # dead lane that is the w * (32 - k)-th: 32 - k dead lanes pad each
+    # warp; at k = 32 every live lane sorts after every dead one
+    before = torch.where(k == 32, n_dead,
+                         torch.div(j, k, rounding_mode="floor") * (32 - k))
+    slot = torch.where(j >= 0, 2 * before, 2 * rank + 1)
+    return idx[torch.sort(slot, stable=True).indices]
 
 
 def closest_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
                     stream=None, max_sched: int = ik.MAX_SCHED):
     """The closest-hit kernel wrapper on ray features phi (10, N), run on
-    lanes sorted by the perm key when `perm` resolves to one; (best_t,
-    best_i) come back in the caller's lane order. stream and max_sched go
-    to ik.closest_hit."""
-    mode = resolve_perm(perm, dense.chunk_bounds.shape[0], phi.device)
+    lanes sorted by the perm key when `perm` resolves to one, the dead
+    lanes of a per-lane tmax (<= 0) first; (best_t, best_i) come back in
+    the caller's lane order. stream and max_sched go to ik.closest_hit."""
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
+    per_lane = tmax.dim() > 0
+    mode = resolve_perm(perm, dense.chunk_bounds.shape[0], phi.device)
     kw = {"stream": stream, "max_sched": max_sched}
     if mode is None:
         return ik.closest_hit(dense.coeffs, phi, tmax, dense.chunk_bounds,
                               **kw)
-    idx = lane_order(phi, tmax, dense.chunk_bounds, mode)
+    idx = lane_order(phi, tmax, dense.chunk_bounds, mode, dead_first=per_lane)
     bt_s, bi_s = ik.closest_hit(dense.coeffs, phi[:, idx],
-                                tmax[idx] if tmax.dim() else tmax,
+                                tmax[idx] if per_lane else tmax,
                                 dense.chunk_bounds, **kw)
     best_t, best_i = torch.empty_like(bt_s), torch.empty_like(bi_s)
     best_t[idx] = bt_s

@@ -14,20 +14,28 @@ storage order.
 Each wrapper has two variants, as the TPU package has: resident (K1, K3:
 each visited chunk staged whole in one shared-memory slot) and streamed
 (K2, K4: two slots of 32-triangle pieces, the next piece copied while
-the current one is scanned). K2, K3 and K4 cull per warp, stage a chunk
+the current one is scanned). All four cull per warp, stage a chunk
 triangle-major, read a triangle's coefficients with 128-bit loads and
-take the divide only for a triangle that may be a valid hit; K1 is the
-exact-path yardstick, block-granular and row-major. stream=None takes the
-streamed variant when T_pad > STREAM_MIN_T_PAD, the TPU package's own
-switch point, so that both packages take the same variant on the same
-scene. All walk the same kind of per-tile schedule: superchunks of g =
-ceil(n_chunks / max_sched) morton-consecutive chunks (superchunk_bounds),
-in the near-to-far order of tile_chunk_order, built per CUDA block of the
+take the divide only for a triangle that may be a valid hit. stream=None
+takes the streamed variant when T_pad > STREAM_MIN_T_PAD. All walk the
+same kind of per-tile schedule: superchunks of g = ceil(n_chunks /
+max_sched) morton-consecutive chunks (superchunk_bounds), in the
+near-to-far order of tile_chunk_order, built per CUDA block of the
 variant's lanes (BLOCKS). A one-chunk scene gets no schedule and the
 kernel walks its chunk under the cull. The schedule only skips chunks no
 lane can reach, so every variant gives the plain version's hits and best
-t (ties in t may pick another index). K3 and K4 work their tiles in the
-order of heavy_first, the longest schedules first.
+t (ties in t may pick another index). All four work their tiles in the
+order of heavy_first, the longest schedules first. A lane with tmax <= 0
+or a NaN operand takes no part in a walk and misses, (+inf, 0) or False,
+as the plain versions give it (t < tmax fails).
+
+  closest_hit_exact(coeffs, phi, tmax, chunk_bounds) -> (best_t, best_i)
+      the yardstick (closest_hit_exact_kernel): closest_hit by the plainest
+      walk, block-granular and row-major, with the IEEE divide on every
+      (lane, triangle), resident only, tiles in index order. The smoke run,
+      utils/kernel_timing.py and the card tests hold K1 and K2 to its best
+      t bit for bit and K3 and K4 to its hits; the path tracer never calls
+      it.
 
 Dispatch: a tensor on the CPU goes to the plain version (closest_hit_ref,
 any_hit_ref, the chunked exact-f32 form of tracer_tpu/ops/intersect.py);
@@ -45,18 +53,24 @@ import torch
 
 from tracer_tpu_torch.ops import cuda_lib, shapes
 
-# Lanes per CUDA block, the tile of the chunk schedule, of K1, K2, K3 and
-# K4 (csrc/intersect.cu kBlock, kStreamedClosestBlock, kAnyBlock and
-# kStreamedAnyBlock, checked at load through the functions of _BLOCK_FNS).
+# Lanes per CUDA block, the tile of the chunk schedule, of K1, K2, K3, K4
+# and the yardstick (csrc/intersect.cu kBlock, kStreamedClosestBlock,
+# kAnyBlock, kStreamedAnyBlock and kExactBlock, checked at load through the
+# functions of _BLOCK_FNS).
 BLOCK = 256
 STREAMED_CLOSEST_BLOCK = 64
 ANY_BLOCK = 256
 STREAMED_ANY_BLOCK = 64
+EXACT_BLOCK = 256
 # Most schedule entries per tile (tracer_tpu's MAX_SCHED): chunks group
 # into superchunks of g = ceil(n_chunks / max_sched).
 MAX_SCHED = 64
-# stream=None streams the coefficients above this many padded triangles.
-STREAM_MIN_T_PAD = 65_536
+# stream=None streams the coefficients above this many padded triangles:
+# where the card's times cross. On an NVIDIA H100 80GB HBM3 at 700 W, on
+# the same 262,144 first-bounce rays (utils/kernel_timing.stream_pairs), K1
+# / K2 alone take 3.78 / 3.93 ms at 5,632 padded triangles, 9.90 / 8.93 at
+# 22,528 and 20.75 / 15.97 at 90,112. Results do not depend on it.
+STREAM_MIN_T_PAD = 8_192
 # Shared memory per triangle of a staged chunk: 4 rows of 10 f32.
 _TRI_BYTES = 4 * 10 * 4
 # Largest chunk each variant takes: the resident kernels stage one chunk
@@ -66,21 +80,25 @@ MAX_CHUNK_T = {"resident": (48 * 1024) // _TRI_BYTES, "streamed": None}
 # Bound on the (chunks, lanes) f32 temporaries of one schedule batch.
 _SCHED_ELEMS = 1 << 24
 
-# Launches of each kernel, and calls of each variant's plain version. A
+# Launches of each kernel, and calls of each one's plain version. A
 # wrapper adds one where it launches its kernel (or runs its plain
-# version) and nowhere else; reset_counts() sets all to 0.
+# version) and nowhere else; reset_counts() sets all to 0. VARIANTS are
+# the kernels of the path (K1-K4), EXACT the yardstick.
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
-BLOCKS = dict(zip(VARIANTS, (BLOCK, STREAMED_CLOSEST_BLOCK, ANY_BLOCK,
-                            STREAMED_ANY_BLOCK)))
-_BLOCK_FNS = dict(zip(VARIANTS, ("kernel_block", "streamed_closest_block",
-                                 "any_block", "streamed_any_block")))
-launches = {k: 0 for k in VARIANTS}
-plain_calls = {k: 0 for k in VARIANTS}
+EXACT = "closest_hit_exact"
+KERNELS = VARIANTS + (EXACT,)
+BLOCKS = dict(zip(KERNELS, (BLOCK, STREAMED_CLOSEST_BLOCK, ANY_BLOCK,
+                           STREAMED_ANY_BLOCK, EXACT_BLOCK)))
+_BLOCK_FNS = dict(zip(KERNELS, ("kernel_block", "streamed_closest_block",
+                                "any_block", "streamed_any_block",
+                                "exact_block")))
+launches = {k: 0 for k in KERNELS}
+plain_calls = {k: 0 for k in KERNELS}
 
 
 def reset_counts() -> None:
-    for k in VARIANTS:
+    for k in KERNELS:
         launches[k] = 0
         plain_calls[k] = 0
 
@@ -101,9 +119,12 @@ def build() -> ctypes.CDLL:
             raise RuntimeError(f"csrc/intersect.cu {fn}() is "
                                f"{getattr(lib, fn)()} lanes, the wrapper's "
                                f"{BLOCKS[name]}")
+    lib.closest_min_blocks.argtypes = []
+    lib.closest_min_blocks.restype = ctypes.c_int
     head = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    lib.closest_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
-    lib.closest_hit_launch.restype = ctypes.c_int
+    for entry in (lib.closest_hit_launch, lib.closest_hit_exact_launch):
+        entry.argtypes = head + [ctypes.c_void_p] * 5
+        entry.restype = ctypes.c_int
     lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
     lib.any_hit_launch.restype = ctypes.c_int
     return lib
@@ -168,7 +189,7 @@ def _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed, name):
                      ("chunk_bounds", chunk_bounds)):
         if not x.is_contiguous():
             raise ValueError(f"{label} must be contiguous")
-    if name != "closest_hit" and coeffs.data_ptr() % 8:
+    if name != EXACT and coeffs.data_ptr() % 8:
         raise ValueError(f"{name}_kernel stages 8-byte pieces: coeffs must "
                          f"be 8-byte aligned")
     if phi.shape[1] >= 2 ** 31:
@@ -276,7 +297,7 @@ def heavy_first(count):
     descending). Blocks start in index order and a tile's walk is as long
     as its schedule, so the longest walks start first and the short ones
     fill the card behind them; in index order the card ends on a few long
-    walks started last (the any-hit kernels take it)."""
+    walks started last (K1-K4 take it, the yardstick does not)."""
     return torch.argsort(count, descending=True, stable=True).to(torch.int32)
 
 
@@ -343,17 +364,50 @@ def any_hit_ref(coeffs, phi, tmax, chunk_bounds):
 # ---------------------------------------------------------------------------
 # Dispatching wrappers
 
+_ENTRIES = {"closest": "closest_hit_launch", "any": "any_hit_launch",
+            "exact": "closest_hit_exact_launch"}
+
+
+def variant_name(query: str, streamed: bool) -> str:
+    """The kernel's name in launches: closest_hit, any_hit, either with
+    _streamed, or closest_hit_exact (query "exact", resident only)."""
+    if query not in _ENTRIES:
+        raise ValueError(f"query is 'closest', 'any' or 'exact', got "
+                         f"{query!r}")
+    if query == "exact":
+        if streamed:
+            raise ValueError("the exact kernel has no streamed variant")
+        return EXACT
+    return f"{query}_hit_streamed" if streamed else f"{query}_hit"
+
+
+def walk_operands(name: str, phi, tmax, chunk_bounds,
+                  max_sched: int = MAX_SCHED):
+    """What the kernel `name` (of KERNELS) walks, as its launch takes it:
+    (g, sbounds, order, count, tiles), the schedule of walk_schedule per
+    block of BLOCKS[name] lanes and the order in which the launch works
+    its tiles, heavy_first(count). tiles is None where there is no
+    schedule (a one-chunk scene) and for the yardstick, which works its
+    tiles in index order."""
+    g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
+                                             max_sched, BLOCKS[name])
+    tiles = None if count is None or name == EXACT else heavy_first(count)
+    return g, sbounds, order, count, tiles
+
+
 def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
                     stream=None, max_sched: int = MAX_SCHED, stats=None):
-    """The kernel launch of closest_hit (query "closest") or any_hit
-    ("any") on CUDA operands, with the operands checked and the chunk
-    schedule built now: returns (launch, outs), where each launch() queues
-    the kernel into the tensors outs, adds one to its count and returns
-    outs (N = 0 launches nothing). stats (the streamed kernels, K2 and
-    K4, only): an int64 (2,) tensor on the card to which each launch adds
-    the chunks it copied and the (warp, chunk) scans it ran. The
-    schedule's tensors live as long as launch."""
+    """The kernel launch of closest_hit (query "closest"), any_hit ("any")
+    or closest_hit_exact ("exact", stream None or False) on CUDA operands,
+    with the operands checked and the chunk schedule built now: returns
+    (launch, outs), where each launch() queues the kernel into the tensors
+    outs, adds one to its count and returns outs (N = 0 launches nothing).
+    stats (the streamed kernels, K2 and K4, only): an int64 (2,) tensor on
+    the card to which each launch adds the chunks it copied and the (warp,
+    chunk) scans it ran. The schedule's tensors live as long as launch."""
     tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    if query == "exact" and stream is None:
+        stream = False
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
     name = variant_name(query, streamed)
     if phi.device.type != "cuda":
@@ -364,28 +418,26 @@ def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
         raise ValueError("stats is an int64 (2,) tensor beside phi, for "
                          "the streamed kernels only")
     n = phi.shape[1]
-    if query == "closest":
+    if query == "any":
+        outs = (torch.empty((n,), dtype=torch.bool, device=phi.device),)
+    else:
         outs = (torch.empty((n,), dtype=torch.float32, device=phi.device),
                 torch.empty((n,), dtype=torch.int32, device=phi.device))
-    else:
-        outs = (torch.empty((n,), dtype=torch.bool, device=phi.device),)
     if not n:
         return (lambda: outs), outs
-    entry = getattr(build(), f"{query}_hit_launch")
+    entry = getattr(build(), _ENTRIES[query])
     tmax = _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed,
                           name)
-    g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
-                                             max_sched, BLOCKS[name])
-    tail = (*outs, stats)
-    if query == "any":  # K3 and K4 work their tiles heaviest first
-        tail = (None if count is None else heavy_first(count), *tail)
+    g, sbounds, order, count, tiles = walk_operands(name, phi, tmax,
+                                                    chunk_bounds, max_sched)
     args = (int(streamed), _ptr(coeffs), _ptr(phi), _ptr(tmax),
             _ptr(chunk_bounds), _ptr(sbounds), _ptr(order), _ptr(count), n,
             coeffs.shape[1], n_chunks, chunk_t, g, sbounds.shape[0],
-            *map(_ptr, tail), cuda_lib.raw_stream(phi.device.index))
+            _ptr(tiles), *map(_ptr, outs), _ptr(stats),
+            cuda_lib.raw_stream(phi.device.index))
 
     # the default argument keeps the tensors behind args' pointers alive
-    def launch(_held=(tmax, sbounds, order, count, tail)):
+    def launch(_held=(tmax, sbounds, order, count, tiles, stats)):
         err = entry(*args)
         if err:
             raise RuntimeError(f"{name}_kernel launch failed: CUDA error "
@@ -394,14 +446,6 @@ def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
         return outs
 
     return launch, outs
-
-
-def variant_name(query: str, streamed: bool) -> str:
-    """The kernel's name in launches: closest_hit, any_hit, or either
-    with _streamed."""
-    if query not in ("closest", "any"):
-        raise ValueError(f"query is 'closest' or 'any', got {query!r}")
-    return f"{query}_hit_streamed" if streamed else f"{query}_hit"
 
 
 def _no_stats_on_cpu(stats) -> None:
@@ -425,6 +469,22 @@ def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
     launch, _ = prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
                                 stream=stream, max_sched=max_sched,
                                 stats=stats)
+    return launch()
+
+
+def closest_hit_exact(coeffs, phi, tmax, chunk_bounds, *,
+                      max_sched: int = MAX_SCHED):
+    """closest_hit by the yardstick kernel (resident, block-granular cull,
+    the divide on every triangle): what K1 and K2 must give in best_t bit
+    for bit, and K3 and K4 in isfinite(best_t). A check, not a path: the
+    smoke run, utils/kernel_timing.py and the card tests call it."""
+    tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    streamed_variant(coeffs.shape[1], False, max_sched)
+    if phi.device.type == "cpu":
+        plain_calls[EXACT] += 1
+        return _closest_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
+    launch, _ = prepared_launch("exact", coeffs, phi, tmax, chunk_bounds,
+                                max_sched=max_sched)
     return launch()
 
 

@@ -1,39 +1,76 @@
-"""Time the intersection kernels on their own, and count what K2 and K4
-scan.
+"""Time the intersection kernels on their own, count what K2 and K4 scan,
+and hold K1-K4 to the exact yardstick kernel.
 
     python -m tracer_tpu_torch.utils.kernel_timing [--levels 6] [--size 512]
+    python -m tracer_tpu_torch.utils.kernel_timing --k1
+    python -m tracer_tpu_torch.utils.kernel_timing --k1-block-sizes
 
-On a CUDA card only. Builds subdivide(cornell_like, levels) (cornell-sub6
-at the default 6: 90,112 triangles in 352 chunks) at size x size, takes
-the first-bounce rays and the 2N shadow lanes of
-kernel_cases.render_rays in the odmorton order the main path gives them,
-and prints the card's name and power limit, then one JSON line: the
-kernels' lanes per block; per streamed kernel (K2, K4), and for K3 on the
-same lanes and on the shadow lanes of the one-chunk Cornell box (where
-its main path launches it), the median time of the launch alone (its
+On a CUDA card only; each prints the card's name and power limit, then
+one JSON line.
+
+The first builds subdivide(cornell_like, levels) (cornell-sub6 at the
+default 6: 90,112 triangles in 352 chunks) at size x size, takes the
+first-bounce rays and the 2N shadow lanes of kernel_cases.render_rays in
+the odmorton order the main path gives them, and prints: the kernels'
+lanes per block; per streamed kernel (K2, K4), and for K3 on the same
+lanes and on the shadow lanes of the one-chunk Cornell box (where its
+main path launches it), the median time of the launch alone (its
 schedule built beforehand) and of the wrapper call (the schedule built
 in each call), between CUDA events; K2's and K4's in-kernel counts as
 scanned tests per lane beside the plain model's bracket
 (kernel_cases.cull_pairs) and the tests the answer needs
-(kernel_cases.needed_tests); K2 against K1 on the same rays, K2 with its
-tiles longest schedule first, and K3 and K4 against K1's hits on the same
-lanes. chip_smoke.py runs the same
-functions. A design step is this command on a copy of the tree that
-differs in one constant.
+(kernel_cases.needed_tests); K2 against the exact kernel on the same
+rays, K2 with its tiles in index order and longest schedule first, K3
+and K4 against the exact kernel's hits on the same lanes; K1 and K2 on
+the same first-bounce rays of subdivide(cornell_like, 4), 5 and 6
+(stream_pairs: where streaming pays); and K1's numbers (k1_report).
+
+--k1 prints k1_report alone: K1's lanes per block, blocks per SM,
+registers and spills (ptxas -v), its time at the Cornell shapes, the
+capture's and cornell-sub6 resident, beside the exact kernel's at the
+Cornell shapes, and K1 against the exact kernel on each ray set.
+--k1-block-sizes runs that in copies of the package under build/ that
+differ in K1's lanes per block and blocks per SM (K1_SWEEP), the
+unchanged constants first and last. chip_smoke.py runs the same
+functions. Any other design step is this command on a copy of the tree
+that differs in one constant.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import re
+import shutil
 import statistics
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
 CAM_ORIGIN = (0.0, 0.8, 1.8)
 REL = 1e-5
+
+
+@contextlib.contextmanager
+def tap(module, name, calls):
+    """Within the block, each call of module.name also appends (args,
+    kwargs, result) to calls."""
+    fn = getattr(module, name)
+
+    def tapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, tapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 def ms_per_call(fn, calls: int = 20, rounds: int = 5) -> float:
@@ -105,16 +142,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sub_state(levels: int, size: int, device):
-    """init() of subdivide(cornell_like, levels) at size x size (levels 0:
-    the one-chunk Cornell box itself)."""
+def sub_state(levels: int, size: int, device, conf: int = 0,
+              height: int | None = None):
+    """init() of subdivide(cornell_like, levels) at size x (height or
+    size), sensor config conf (levels 0: the one-chunk Cornell box
+    itself)."""
     import tracer_tpu_torch as T
     from tracer_tpu_torch.utils.testscenes import cornell_like, subdivide
     tris, tm, mats = cornell_like()
     if levels:
         tris, tm = subdivide(tris, tm, levels=levels)
-    return T.init(0, size, size, 0, tris, tm, mats, cam_origin=CAM_ORIGIN,
-                  device=device)
+    return T.init(0, height or size, size, conf, tris, tm, mats,
+                  cam_origin=CAM_ORIGIN, device=device)
 
 
 def timed_rays(s):
@@ -135,9 +174,14 @@ def timed_rays(s):
 
 def kernel_times(query: str, co, phi, tmax, cb, stream: bool) -> dict:
     """ms: the wrapper call (schedule built each call); alone_ms: the
-    kernel's launch with the schedule built once beforehand."""
+    kernel's launch with the schedule built once beforehand. query:
+    "closest", "any" or "exact" (stream False)."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
-    call = ik.closest_hit if query == "closest" else ik.any_hit
+    if query == "exact":   # the yardstick kernel, resident only
+        def call(*args, stream):
+            return ik.closest_hit_exact(*args)
+    else:
+        call = ik.closest_hit if query == "closest" else ik.any_hit
     launch, _ = ik.prepared_launch(query, co, phi, tmax, cb, stream=stream)
     return {"ms": ms_per_call(lambda: call(co, phi, tmax, cb, stream=stream)),
             "alone_ms": ms_per_call(launch)}
@@ -226,15 +270,17 @@ def k4_scans(co, phi, tmax, cb) -> dict:
     return out
 
 
-def k2_vs_k1(co, phi, tmax, cb) -> dict:
-    """K2 against K1 (resident, block-granular) on the same lanes: lanes
-    whose best_t differs in any bit, and lanes whose best_i differs
-    outside the REL tie band (float64, kernel_cases.boundary_lanes on
-    those lanes)."""
+def closest_vs_exact(co, phi, tmax, cb, stream: bool, **kw) -> dict:
+    """K1 (stream False) or K2 (True) against the exact kernel on the
+    same lanes: lanes whose best_t differs in any bit, and lanes whose
+    best_i differs at all and outside the REL tie band (float64,
+    kernel_cases.boundary_lanes on those lanes). best_i can differ only
+    where the two walks visit chunks in another order, i.e. where the
+    lanes per block differ. kw: max_sched, for both."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
     from tracer_tpu_torch.utils import kernel_cases as kc
-    t2, i2 = ik.closest_hit(co, phi, tmax, cb, stream=True)
-    t1, i1 = ik.closest_hit(co, phi, tmax, cb, stream=False)
+    t2, i2 = ik.closest_hit(co, phi, tmax, cb, stream=stream, **kw)
+    t1, i1 = ik.closest_hit_exact(co, phi, tmax, cb, **kw)
     bits = t2.view(torch.int32) != t1.view(torch.int32)
     lanes = torch.nonzero(i2 != i1)[:, 0]
     idx = 0
@@ -244,52 +290,263 @@ def k2_vs_k1(co, phi, tmax, cb) -> dict:
         edge, tie = kc.boundary_lanes(co, phi[:, lanes].contiguous(), tm,
                                       cb, rel=REL)
         idx = int((~tie & ~edge).sum())
-    return {"lanes": phi.shape[1], "best_t_bits_differ": int(bits.sum()),
+    return {"lanes": phi.shape[1], "hits": int(torch.isfinite(t1).sum()),
+            "best_t_bits_differ": int(bits.sum()),
             "best_i_differ": int(lanes.numel()),
             "best_i_differ_outside_ties": idx}
 
 
 def k2_block_order(co, phi, tmax, cb) -> dict:
-    """K2 alone with its blocks in index order, as it launches them, and
-    with whole tiles of lanes moved so that the tiles with the longest
-    schedules come first (ik.heavy_first, the order K3 and K4 work their
-    tiles in): what that order would be worth on K2."""
+    """K2 alone with its tiles longest schedule first, as it launches
+    them (ik.heavy_first), and in index order: the same launch with
+    heavy_first returning the identity while it is prepared."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
-    tile = ik.STREAMED_CLOSEST_BLOCK
-    n = phi.shape[1] // tile * tile
-    phi = phi[:, :n]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32,
-                           device=phi.device).expand(n)
-    _, _, _, count = ik.walk_schedule(phi, tmax, cb, ik.MAX_SCHED, tile)
     out = {}
-    for key, tiles in (("index_order_ms", None),
-                       ("heavy_first_ms", ik.heavy_first(count).long())):
-        p, t = phi.contiguous(), tmax.contiguous()
-        if tiles is not None:
-            lanes = (tiles[:, None] * tile
-                     + torch.arange(tile, device=phi.device)).reshape(-1)
-            p, t = phi[:, lanes].contiguous(), tmax[lanes].contiguous()
-        launch, _ = ik.prepared_launch("closest", co, p, t, cb, stream=True)
+    for key, order in (
+            ("heavy_first_ms", ik.heavy_first),
+            ("index_order_ms", lambda count: torch.arange(
+                count.shape[0], dtype=torch.int32, device=count.device))):
+        kept = ik.heavy_first
+        ik.heavy_first = order
+        try:
+            launch, _ = ik.prepared_launch("closest", co, phi, tmax, cb,
+                                           stream=True)
+        finally:
+            ik.heavy_first = kept
         out[key] = ms_per_call(launch)
     return out
 
 
-def any_vs_k1(co, phi, tmax, cb, stream: bool) -> dict:
-    """K3 (stream False) or K4 (True) against K1's hits, isfinite(best_t)
-    at the same per-lane tmax, on every lane and with no boundary band:
-    K1 takes the exact divide on every triangle, and the any-hit kernels
-    report a hit only from that same path."""
+def any_vs_exact(co, phi, tmax, cb, stream: bool) -> dict:
+    """K3 (stream False) or K4 (True) against the exact kernel's hits,
+    isfinite(best_t) at the same per-lane tmax, on every lane and with no
+    boundary band: the exact kernel takes the IEEE divide on every
+    triangle, and the any-hit kernels report a hit only from that same
+    arithmetic."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
     hit = ik.any_hit(co, phi, tmax, cb, stream=stream)
-    bt, _ = ik.closest_hit(co, phi, tmax, cb, stream=False)
+    bt, _ = ik.closest_hit_exact(co, phi, tmax, cb)
     return {"lanes": phi.shape[1], "hits": int(hit.sum()),
             "differ": int((hit != torch.isfinite(bt)).sum())}
+
+
+def stream_pairs(size: int, device, levels=(4, 5, 6), states=None) -> dict:
+    """Where streaming pays on this card: K1 (resident) and K2 (streamed)
+    alone on the same first-bounce rays of subdivide(cornell_like, l), in
+    the odmorton order, and K3 and K4 on its 2N shadow lanes, for each l:
+    {l: {"t_pad", "lanes", "k1_alone_ms", "k2_alone_ms", "k3_alone_ms",
+    "k4_alone_ms"}}. Each pair gives the same results, so
+    ik.STREAM_MIN_T_PAD decides only the time. states: {l: a state
+    already built at that level and size}."""
+    from tracer_tpu_torch.ops import intersect_kernel as ik
+    from tracer_tpu_torch.ops import shapes
+    out = {}
+    for lv in levels:
+        s = (states or {}).get(lv) or sub_state(lv, size, device)
+        co, cb = s.scene.accel.coeffs, s.scene.accel.chunk_bounds
+        phi, phi_s, st = timed_rays(s)
+        row = {"t_pad": co.shape[1], "lanes": phi.shape[1]}
+        for key, query, p, tm, stream in (
+                ("k1_alone_ms", "closest", phi, shapes.F32_HIGHEST, False),
+                ("k2_alone_ms", "closest", phi, shapes.F32_HIGHEST, True),
+                ("k3_alone_ms", "any", phi_s, st, False),
+                ("k4_alone_ms", "any", phi_s, st, True)):
+            launch, _ = ik.prepared_launch(query, co, p, tm, cb,
+                                           stream=stream)
+            row[key] = ms_per_call(launch, calls=10, rounds=5)
+        out[lv] = row
+    return out
+
+
+def bounce_queries(integrator, s, with_points: bool = False) -> list:
+    """Every closest-hit query of one 1-spp frame of state s, as the path
+    hands it to the kernel wrapper: [(coeffs, phi, tmax, chunk_bounds,
+    kwargs)], one per bounce iteration."""
+    from tracer_tpu_torch.ops import intersect_kernel as ik
+    w, h = s.sub_dims
+    calls = []
+    with tap(ik, "closest_hit", calls):
+        integrator.render_frames(s.seed, s.nonce + 1, s.scene, s.cam,
+                                 s.ambience, w, h, s.transmitter_kind, 1,
+                                 s.render_mode, with_points=with_points)
+    return [(*args, kw) for args, kw, _ in calls]
+
+
+def bounce_times(queries, partition: bool = False, calls: int = 20,
+                 rounds: int = 5) -> list:
+    """Per bounce iteration of bounce_queries: the live share of the
+    lanes (tmax > 0), the closest-hit kernel's launch alone on them
+    (kernel_ms) and, with `partition` (a one-chunk scene, whose lanes the
+    path does not sort), the wrapper call on the lanes as they are
+    (unsorted_ms) and with the dead lanes partitioned first, as a sorted
+    query would hand them over (partition_ms covers the stable sort on
+    tmax > 0, the gather, the kernel and the two scatters): what the path
+    would pay to free whole warps where it does not sort anyway."""
+    from tracer_tpu_torch.ops import intersect_kernel as ik
+
+    def partitioned(co, phi, tm, cb):
+        idx = torch.sort(tm > 0, stable=True).indices
+        bt_s, bi_s = ik.closest_hit(co, phi[:, idx], tm[idx], cb)
+        bt, bi = torch.empty_like(bt_s), torch.empty_like(bi_s)
+        bt[idx] = bt_s
+        bi[idx] = bi_s
+        return bt, bi
+
+    out = []
+    for co, phi, tm, cb, kw in queries:
+        tm = torch.as_tensor(tm, dtype=torch.float32,
+                             device=phi.device).expand(phi.shape[1])
+        launch, _ = ik.prepared_launch("closest", co, phi, tm, cb, **kw)
+        row = {"live_share": float((tm > 0).float().mean()),
+               "kernel_ms": ms_per_call(launch, calls, rounds)}
+        if partition:
+            for key, fn in (("unsorted_ms", ik.closest_hit),
+                            ("partition_ms", partitioned)):
+                row[key] = ms_per_call(lambda: fn(co, phi, tm, cb), calls,
+                                       rounds)
+        out.append(row)
+    return out
+
+
+def spread_sweep(integrator, s, targets=(0, 2048, 4096, 8192),
+                 calls: int = 5, rounds: int = 3) -> dict:
+    """What dealing the live lanes out over more warps is worth
+    (intersect.SPREAD_WARPS, lane_order): every sorted closest- and
+    any-hit query of one 1-spp frame of state s, as the path hands it to
+    intersect.closest_hit_phi / any_hit_phi, timed as a whole (sort,
+    gather, schedule, kernel, scatter) at each target. Returns
+    {"closest" | "any": {"live_share": [per bounce], target: [ms per
+    bounce]}}; the results at every target equal those at 0 in best_t
+    bits and hits, or it raises."""
+    from tracer_tpu_torch.ops import intersect
+    w, h = s.sub_dims
+    taps = {"closest": [], "any": []}
+    with tap(intersect, "closest_hit_phi", taps["closest"]), \
+            tap(intersect, "any_hit_phi", taps["any"]):
+        integrator.render_frames(s.seed, s.nonce + 1, s.scene, s.cam,
+                                 s.ambience, w, h, s.transmitter_kind, 1,
+                                 s.render_mode)
+    kept = intersect.SPREAD_WARPS
+    out = {}
+    try:
+        for query, fn in (("closest", intersect.closest_hit_phi),
+                          ("any", intersect.any_hit_phi)):
+            rows = {"live_share": [
+                float((torch.as_tensor(a[1]) > 0).float().mean())
+                for a, _, _ in taps[query]]}
+            for target in targets:
+                intersect.SPREAD_WARPS = target
+                rows[target] = []
+                for args, kw, ref in taps[query]:
+                    got = fn(*args, **kw)
+                    same = (torch.equal(got, ref) if query == "any" else
+                            torch.equal(got[0].view(torch.int32),
+                                        ref[0].view(torch.int32)))
+                    if not same:
+                        raise AssertionError(
+                            f"{query} query differs at SPREAD_WARPS={target}")
+                    rows[target].append(
+                        ms_per_call(lambda: fn(*args, **kw), calls, rounds))
+            out[query] = rows
+    finally:
+        intersect.SPREAD_WARPS = kept
+    return out
+
+
+def _entry_resources(kernel: str) -> dict:
+    """ptxas -v of the entry function whose name holds `kernel` followed
+    by its argument list (cuda_lib.kernel_resources)."""
+    from tracer_tpu_torch.ops import cuda_lib
+    for name, res in cuda_lib.kernel_resources().items():
+        if re.search(rf"\d{kernel}E", name):
+            return res
+    return {}
+
+
+def k1_report(size: int, device, sub6=None) -> dict:
+    """K1 as built: lanes per block, blocks per SM at least, registers and
+    spills; wrapper and launch-alone ms at the Cornell shapes (size^2
+    first-bounce rays on the one-chunk box), at the capture's (640x480
+    first-bounce rays of sensor config 2) and on cornell-sub6's
+    first-bounce rays with stream=False; the exact kernel at the Cornell
+    shapes in the same run; K1 against the exact kernel on each set."""
+    from tracer_tpu_torch.ops import intersect, shapes
+    from tracer_tpu_torch.ops import intersect_kernel as ik
+    from tracer_tpu_torch.utils import kernel_cases as kc
+    lib = ik.build()
+    hi = shapes.F32_HIGHEST
+    out = {"block": ik.BLOCK, "min_blocks": lib.closest_min_blocks(),
+           **_entry_resources("closest_hit_kernel")}
+    sets = {}
+    for key, s in (("cornell", sub_state(0, size, device)),
+                   ("capture", sub_state(0, 640, device, conf=2,
+                                         height=480))):
+        _, (bo, bd), _ = kc.render_rays(s)
+        sets[key] = (s.scene.accel, intersect.ray_features_t(bo, bd))
+    sub6 = sub6 or sub_state(6, size, device)
+    sets["sub6_resident"] = (sub6.scene.accel, timed_rays(sub6)[0])
+    for key, (dense, phi) in sets.items():
+        co, cb = dense.coeffs, dense.chunk_bounds
+        out[key] = {"lanes": phi.shape[1],
+                    **kernel_times("closest", co, phi, hi, cb, False),
+                    "vs_exact": closest_vs_exact(co, phi, hi, cb, False)}
+    dense, phi = sets["cornell"]
+    out["exact_cornell"] = kernel_times("exact", dense.coeffs, phi, hi,
+                                        dense.chunk_bounds, False)
+    return out
+
+
+# K1's (lanes per block, blocks per SM at least) of --k1-block-sizes; the
+# kept pair first and last, so that the sweep shows its own drift
+K1_SWEEP = ((256, 4), (64, 16), (128, 8), (128, 6), (256, 3), (256, 5),
+            (512, 2), (256, 4))
+
+
+def k1_block_sizes(configs=K1_SWEEP, root: Path | None = None) -> list:
+    """k1_report for each (lanes per block, blocks per SM) of `configs`:
+    the package is copied under build/k1_sweep/, kBlock and
+    kClosestMinBlocks of csrc/intersect.cu and BLOCK of
+    ops/intersect_kernel.py are rewritten in the copy, and the copy runs
+    `python -m tracer_tpu_torch.utils.kernel_timing --k1` in a process of
+    its own (its own nvcc build). Returns the reports in order."""
+    pkg = Path(__file__).resolve().parents[1]
+    root = root or pkg.parent / "build" / "k1_sweep"
+    reports = []
+    for i, (block, min_blocks) in enumerate(configs):
+        top = root / f"{i}_b{block}_m{min_blocks}"
+        shutil.rmtree(top, ignore_errors=True)
+        shutil.copytree(pkg, top / pkg.name,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        for rel, pattern, value in (
+                ("csrc/intersect.cu", r"(constexpr int kBlock = )\d+", block),
+                ("csrc/intersect.cu",
+                 r"(constexpr int kClosestMinBlocks = )\d+", min_blocks),
+                ("ops/intersect_kernel.py", r"(?m)^(BLOCK = )\d+", block)):
+            path = top / pkg.name / rel
+            text, n = re.subn(pattern, rf"\g<1>{value}", path.read_text())
+            if n != 1:
+                raise RuntimeError(f"{pattern} matches {n} times in {rel}")
+            path.write_text(text)
+        run = subprocess.run(
+            [sys.executable, "-m", f"{pkg.name}.utils.kernel_timing", "--k1"],
+            cwd=top, capture_output=True, text=True)
+        if run.returncode:
+            raise RuntimeError(f"K1 at {block} lanes, {min_blocks} blocks: "
+                               f"{run.stderr[-2000:]}")
+        reports.append(json.loads(run.stdout.strip().splitlines()[-1]))
+    return reports
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--levels", type=int, default=6)
     ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--k1", action="store_true",
+                    help="print k1_report alone")
+    ap.add_argument("--k1-block-sizes", action="store_true",
+                    help="k1_report over K1_SWEEP, in copies of the package")
+    ap.add_argument("--spread", action="store_true",
+                    help="print spread_sweep of a frame alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing needs a CUDA card")
@@ -298,12 +555,24 @@ def main(argv=None) -> None:
     from tracer_tpu_torch.utils import kernel_cases
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line(), flush=True)
+    dev = torch.device("cuda")
+    if args.k1_block_sizes:
+        print(json.dumps({"k1_block_sizes": k1_block_sizes()}), flush=True)
+        return
     ik.build()
-    s = sub_state(args.levels, args.size, torch.device("cuda"))
+    if args.k1:
+        print(json.dumps(k1_report(args.size, dev)), flush=True)
+        return
+    if args.spread:
+        from tracer_tpu_torch.engine import integrator
+        print(json.dumps(spread_sweep(
+            integrator, sub_state(args.levels, args.size, dev))), flush=True)
+        return
+    s = sub_state(args.levels, args.size, dev)
     co, cb = s.scene.accel.coeffs, s.scene.accel.chunk_bounds
     phi_b, phi_s, st = timed_rays(s)
     hi = shapes.F32_HIGHEST
-    box = sub_state(0, args.size, torch.device("cuda"))
+    box = sub_state(0, args.size, dev)
     box_co, box_cb = box.scene.accel.coeffs, box.scene.accel.chunk_bounds
     # the box's any-hit queries are not sorted (one chunk: perm="auto" off)
     _, _, (so, sd, box_st) = kernel_cases.render_rays(box)
@@ -311,8 +580,8 @@ def main(argv=None) -> None:
     print(json.dumps({
         "levels": args.levels, "size": args.size,
         "build_s": cuda_lib.build_info()["seconds"],
-        "k2_block": ik.STREAMED_CLOSEST_BLOCK, "k3_block": ik.ANY_BLOCK,
-        "k4_block": ik.STREAMED_ANY_BLOCK,
+        "k1_block": ik.BLOCK, "k2_block": ik.STREAMED_CLOSEST_BLOCK,
+        "k3_block": ik.ANY_BLOCK, "k4_block": ik.STREAMED_ANY_BLOCK,
         "closest_hit_streamed": kernel_times("closest", co, phi_b, hi, cb,
                                              True),
         "any_hit_streamed": kernel_times("any", co, phi_s, st, cb, True),
@@ -321,12 +590,16 @@ def main(argv=None) -> None:
                                         box_cb, False),
         "k2_scans": k2_scans(co, phi_b, hi, cb),
         "k4_scans": k4_scans(co, phi_s, st, cb),
-        "k2_vs_k1": k2_vs_k1(co, phi_b, hi, cb),
+        "k2_vs_exact": closest_vs_exact(co, phi_b, hi, cb, True),
         "k2_block_order": k2_block_order(co, phi_b, hi, cb),
-        "k4_vs_k1": any_vs_k1(co, phi_s, st, cb, True),
-        "k3_vs_k1": any_vs_k1(co, phi_s, st, cb, False),
-        "k3_vs_k1_cornell": any_vs_k1(box_co, box_phi, box_st, box_cb,
-                                      False)}), flush=True)
+        "k4_vs_exact": any_vs_exact(co, phi_s, st, cb, True),
+        "k3_vs_exact": any_vs_exact(co, phi_s, st, cb, False),
+        "k3_vs_exact_cornell": any_vs_exact(box_co, box_phi, box_st, box_cb,
+                                            False),
+        "stream_pairs": stream_pairs(args.size, dev,
+                                     states={args.levels: s}),
+        "k1": k1_report(args.size, dev, sub6=s if args.levels == 6 else None),
+    }), flush=True)
 
 
 if __name__ == "__main__":
