@@ -30,20 +30,38 @@ any failure exits non-zero:
               at the Cornell shapes, where the main path launches it
               (CUDA events); K3 against the exact kernel's hits on every
               Cornell shadow lane
-  4. main     the port's main path: init a 512x512 Cornell box, render
-              16 spp (sample_n_frames(s, 17)), 3 x step_render; checks
-              the image and that every kernel launched and no plain
-              intersect version ran; inside the same window the exact
-              kernel runs once on the camera rays, and K1's hits on them,
-              taken before the window, must equal its own; a 32x32 render
-              is held against the same render on the CPU
-  5. breakdown  one 1-spp render of the main path under torch.profiler:
-              device busy share of the wall, device ops per bounce
-              iteration, each kernel's device time, and per bounce
-              iteration the live share of the lanes and the closest-hit
-              kernel's device ms; for the one-chunk box also the wrapper
-              call on the lanes as they come and with the dead lanes
-              partitioned first (sort, gather, kernel, two scatters)
+  4. main     the port's main path, through the API, which runs the
+              pooled render (integrator.render_pooled: a lane whose path
+              has ended takes the next (sample, pixel) work item): init a
+              512x512 Cornell box, sample_n_frames(s, 17) (16 spp), timed,
+              with its rays_traced, iterations, pool lanes P and the live
+              share of its lane-iterations; 3 x step_render; checks the
+              image and that every kernel launched and no plain intersect
+              version ran; inside the same window the exact kernel runs
+              once on the camera rays, and K1's hits on them, taken before
+              the window, must equal its own. Then the pool again from the
+              same seed (image bit for bit) and render_frames (spp whole
+              wavefronts, the plain per-frame version) at the same 16 spp
+              on the same state, timed beside it: rays_traced equal
+              exactly, the colour image within rtol 1e-5 (summation
+              order); a 32x32 render is held against the same render on
+              the CPU
+  5. breakdown  one 16-spp pool render of the main path under
+              torch.profiler (utils/profiling.device_trace): device busy
+              share of the wall, device ops per pool iteration, each
+              kernel's device time, and per pool iteration the live share
+              of the lanes and the closest-hit kernel's device ms; for the
+              one-chunk box also the wrapper call on the lanes as they
+              come and with the dead lanes partitioned first (sort,
+              gather, kernel, two scatters); then K1 and K3 on every
+              query of that render as the pool hands it to them
+              (2,097,152 lanes of fresh primaries among bounce rays, dead
+              lanes at tmax 0, and their 4,194,304 shadow lanes) against
+              the plain version on every lane and against the exact
+              kernel on every lane, and both timed on the queries of one
+              iteration, wrapper call and launch alone, beside the plain
+              version and the bound of the same inputs: the ms, plain_ms
+              and bound_ms of the kernels line
   6. bigscene the big-scene path on subdivisions of the Cornell box
               (the same surfaces and materials): all four kernels on
               subdivide(cornell_like, 5) (22,528 triangles, 88 chunks)
@@ -53,11 +71,18 @@ any failure exits non-zero:
               the plain version on a strided subset of 32,768 lanes; a
               hit-for-hit check of 8,192 rays on subdivide(cornell_like,
               8) (1,441,792 triangles); the 512x512 16-spp render of
-              cornell-sub6 through init / render_frames / sample_n_frames,
-              whose image must pass the Cornell checks and lie within 3%
-              of the Cornell image's mean; the breakdown of one 1-spp
-              cornell-sub6 render and its chunk schedule statistics; each
-              of the four kernels timed at cornell-sub6's shapes, wrapper
+              cornell-sub6 through init / sample_n_frames (the pool, with
+              render_frames at 16 spp beside it, held to it as in phase
+              4), whose image must pass the Cornell checks and lie
+              within 3% of the Cornell image's mean; the breakdown of one
+              16-spp cornell-sub6 pool render, with K2 and K4 on every
+              query of it (524,288 sorted lanes, 1,048,576 shadow lanes)
+              against the plain version on a strided 8,192 of the lanes
+              and against the exact kernel on every lane, and both timed
+              on one iteration's queries as in phase 5; its chunk
+              schedule statistics; each of the four kernels timed at
+              cornell-sub6's per-frame shapes (262,144 first-bounce rays,
+              where the kernels' history was measured), wrapper
               call and launch alone (utils/kernel_timing.py), beside its
               bound (bytes or operations, whichever is larger); K2's
               and K4's in-kernel counts as scanned tests per lane beside
@@ -78,10 +103,14 @@ any failure exits non-zero:
               K5 and torch.reciprocal the host microseconds per call and
               the device time alone (calls replayed from a CUDA graph)
   8. lidar    the LiDAR capture of the reference's demo-save: init(conf
-              2) at 640x480, sample_points_n(s, 100), timed, with
-              rays_traced taken from the same run; the points' window,
-              miss encoding and return share, the nonce, K1/K3 launched
-              and no plain version; K1 and K3 against their plain versions
+              2) at 640x480, sample_points_n(s, 100) (the pool), timed,
+              with rays_traced, iterations, P and live share taken from
+              the same run; the points' window, miss encoding and return
+              share, the nonce, K1/K3 launched and no plain version; at 8
+              of the 100 spp the pool twice (image and points bit for
+              bit) and render_frames beside it (rays_traced, distance
+              image and points equal exactly); K1 and K3 against their
+              plain versions
               on every query of one 1-spp frame of the capture (307,200
               closest-hit rays and 614,400 shadow lanes per bounce, most
               of them aimed at the transmitter fan), K1 against the exact
@@ -90,8 +119,23 @@ any failure exits non-zero:
               the capture's shapes; a 32x32 8-spp capture
               against the CPU; 3 distance-mode steps; the flash (conf 1)
               against conf 0 on the box with its emission killed; the
-              breakdown of one 1-spp LiDAR frame
-  9. result   a JSON line of the kernels, then the last line
+              breakdown of one 16-spp pool capture, with K1 and K3 on
+              every query of it (2,097,152 and 4,194,304 lanes) against
+              the plain version and the exact kernel as in phase 5
+  9. lbvh     accel="lbvh" (plain torch) built on the card for the Cornell
+              box and subdivide(cornell_like, 3): closest hit on the
+              camera and first-bounce rays and any hit on the 2N shadow
+              lanes against the dense accel (K1/K3): ok equal off boundary
+              lanes, t within 1e-5 relative, another triangle only inside
+              the tie band (kernel_cases.boundary_lanes at 1e-5; a lane
+              that differs off it must be decided by a grazing triangle,
+              |a| <= 8 x TRI_EPS in float64, and is printed with that
+              triangle's |a|, u, v and t); a 64x64 4-spp
+              render whose mean lies within 3% of the dense accel's; build
+              ms and ms per query (utils/profiling.PhaseTimer)
+ 10. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
+              card, with either accel, resumes the next step bit for bit
+ 11. result   a JSON line of the kernels, then the last line
               {"ok": true, "device": {...}}
 
 Tolerances (f32 sums in another order, FMA contraction in the kernel):
@@ -130,10 +174,34 @@ TIME_CALLS = 20    # back-to-back calls per timed round
 TIME_ROUNDS = 5
 SIZE = 512          # image width and height of the main path
 SUBSET = 32_768     # lanes of a big-scene kernel result held to the plain
+# A pool query (P lanes, 2P shadow lanes) is held to the plain version on
+# every lane, PLAIN_SLICE lanes at a time, while lanes x triangles stays
+# within PLAIN_PAIRS; past that (cornell-sub6) on a strided POOL_SUBSET of
+# the lanes of every query. The exact kernel takes every lane either way.
+PLAIN_PAIRS = 1 << 30
+PLAIN_SLICE = 1 << 19
+POOL_SUBSET = 8_192
+POOL_TIMED = 1      # the pool iteration whose queries are timed: the first
+                    # with fresh primaries among bounce lanes
 MEAN_REL = 0.03     # cornell-sub6 image mean against the Cornell image's
+PROFILE_SPP = 16    # samples per pixel of a profiled pool render
 # subdivision levels of cornell_like: the resident multi-chunk scene, the
 # slice's scene (cornell-sub6) and the hit-for-hit check
 RESIDENT_LEVELS, SLICE_LEVELS, CHECK_LEVELS = 5, 6, 8
+LBVH_LEVELS = 3     # subdivide(cornell_like, 3), 1,408 triangles, for the LBVH
+# The LBVH scores a triangle from its vertices, the dense accel from
+# precomputed coefficient rows: on a grazing ray, whose determinant a is
+# near TRI_EPS = 1e-5, an f32 error of 1e-8 in a numerator is 1e-3 in u,
+# v or t. A lane where the two accels differ off the REL band is excused
+# only when a triangle that decides it (one whose validity flips inside
+# the GRAZE_REL band, or one of the two nearest candidates of a closest
+# query) has |a| <= GRAZE_A * TRI_EPS in float64; each such lane is
+# printed with |a|, u, v and t of those triangles (grazing_lanes). On an
+# H100 one shadow lane of 524,288 on subdivide(cornell_like, 3) does so:
+# |a| = 5.154 x TRI_EPS, u + v = 1 - 9.2e-5 on one triangle and u =
+# -9.2e-5 on its neighbour across the shared edge.
+GRAZE_REL = 1e-3
+GRAZE_A = 8.0
 CAM_ORIGIN = (0.0, 0.8, 1.8)
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
@@ -151,10 +219,19 @@ F32_FLOPS_PER_S = 67e12
 RECIP_SIZES = (1 << 20, 1 << 26)   # K5: the probe's n, and past the L2
 # the reference's demo-save capture (frontends/save_demo.py defaults)
 LIDAR_W, LIDAR_H, LIDAR_SPP = 640, 480, 100
+LIDAR_CHECK_SPP = 8   # of them, where render_frames runs beside the pool
 
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def clock(phase):
+    """Print the seconds since the script began, at the end of a phase."""
+    log("clock", f"{phase} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def tap(module, name, calls):
@@ -321,6 +398,112 @@ def closest_equals_exact(phase, label, co, phi, tmax, cb, stream,
             or (same_tiles and cmp["best_i_differ"])):
         raise AssertionError(f"the closest-hit kernel and the exact kernel "
                              f"disagree on {label}")
+
+
+def plain_in_slices(ik, query, co, phi, tm, cb):
+    """The plain version of `query` ("closest" or "any") and
+    kernel_cases.boundary_lanes on the same lanes, PLAIN_SLICE lanes at a
+    time (a lane's result does not depend on its neighbours). Returns
+    (ref, (edge, tie)), ref as the plain version returns it."""
+    import torch
+    from tracer_tpu_torch.utils import kernel_cases as kc
+    ref_fn = ik.closest_hit_ref if query == "closest" else ik.any_hit_ref
+    refs, bands = [], []
+    for j in range(0, phi.shape[1], PLAIN_SLICE):
+        p = phi[:, j:j + PLAIN_SLICE].contiguous()
+        t = tm[j:j + PLAIN_SLICE].contiguous()
+        refs.append(ref_fn(co, p, t, cb))
+        bands.append(kc.boundary_lanes(co, p, t, cb, rel=REL))
+    band = tuple(torch.cat(x) for x in zip(*bands))
+    if query == "any":
+        return torch.cat(refs), band
+    return tuple(torch.cat(x) for x in zip(*refs)), band
+
+
+def check_pool_queries(ik, phase, label, closest, anyq, errs):
+    """Every closest- and any-hit query of one pool render, as the path
+    hands it to the kernel wrappers (kernel_timing.pool_queries: P lanes
+    of fresh primaries among bounce rays, dead lanes at tmax 0, and their
+    2P shadow lanes), against the plain version (on every lane, or on a
+    strided POOL_SUBSET of them where lanes x triangles passes
+    PLAIN_PAIRS) and against the exact kernel on every lane."""
+    import torch
+    if not closest or len(closest) != len(anyq):
+        raise AssertionError(f"{label}: the pool render made no kernel "
+                             f"queries")
+    for query, queries in (("closest", closest), ("any", anyq)):
+        for i, (co, phi, tm, cb, kw) in enumerate(queries):
+            n = phi.shape[1]
+            tm = torch.as_tensor(tm, dtype=torch.float32,
+                                 device=phi.device).expand(n).contiguous()
+            streamed = ik.streamed_variant(co.shape[1], kw.get("stream"))
+            name = ik.variant_name(query, streamed)
+            whole = n * co.shape[1] <= PLAIN_PAIRS
+            lanes = (torch.arange(n, device=phi.device) if whole
+                     else strided(n, phi.device, POOL_SUBSET))
+            tag = (f"{label} pool iteration {i} ({int((tm > 0).sum())} of "
+                   f"{n} lanes live; plain on {lanes.shape[0]})")
+            ref, band = plain_in_slices(
+                ik, query, co, phi if whole else phi[:, lanes].contiguous(),
+                tm[lanes], cb)
+            if query == "closest":
+                bt, bi = ik.closest_hit(co, phi, tm, cb, **kw)
+                err = compare_closest(phase, tag, (bt[lanes], bi[lanes]),
+                                      ref, band)
+                closest_equals_exact(
+                    phase, tag, co, phi, tm, cb, streamed,
+                    not streamed and ik.BLOCK == ik.EXACT_BLOCK,
+                    max_sched=kw.get("max_sched", ik.MAX_SCHED))
+            else:
+                hit = ik.any_hit(co, phi, tm, cb, **kw)
+                err = compare_any(phase, tag, hit[lanes], ref, band[0])
+                any_equals_exact(phase, tag, co, phi, tm, cb, streamed)
+            errs[name] = max(errs[name], err)
+            del ref, band
+
+
+def pool_query_times(ik, phase, label, closest, anyq, card):
+    """The two kernels of a pool render timed on the queries of its
+    iteration POOL_TIMED: wrapper call and launch alone
+    (kernel_timing.kernel_times), the plain version on the same lanes
+    (one call after two, PLAIN_SLICE lanes at a time) and the bound of
+    the same inputs. Returns {kernel name: times}."""
+    import torch
+    from tracer_tpu_torch.utils import kernel_timing
+    out = {}
+    for query, queries in (("closest", closest), ("any", anyq)):
+        co, phi, tm, cb, kw = queries[min(POOL_TIMED, len(queries) - 1)]
+        n = phi.shape[1]
+        tm = torch.as_tensor(tm, dtype=torch.float32,
+                             device=phi.device).expand(n).contiguous()
+        streamed = ik.streamed_variant(co.shape[1], kw.get("stream"))
+        name = ik.variant_name(query, streamed)
+        ref = ik.closest_hit_ref if query == "closest" else ik.any_hit_ref
+
+        def plain():
+            for j in range(0, n, PLAIN_SLICE):
+                ref(co, phi[:, j:j + PLAIN_SLICE].contiguous(),
+                    tm[j:j + PLAIN_SLICE].contiguous(), cb)
+
+        live = int((tm > 0).sum())
+        t = kernel_timing.kernel_times(query, co, phi, tm, cb, streamed)
+        t["plain_ms"] = ms_per_call(plain, calls=1, rounds=1)
+        t["bound_ms"], t["bound_by"] = query_bound(
+            ik, query, f"{name} on {label}'s pool iteration {POOL_TIMED}",
+            co, cb, phi, tm, card, phase=phase)
+        t["library_ms"] = None
+        t["timed_at"] = (f"{label}, the {'2P shadow' if query == 'any' else 'P'}"
+                         f" lanes of pool iteration {POOL_TIMED}: {n} lanes, "
+                         f"{live} live, as the path orders them")
+        log(phase, f"time {name} on {t['timed_at']}: wrapper {t['ms']:.4f} "
+            f"ms, launch alone {t['alone_ms']:.4f} ms = "
+            f"{100 * t['bound_ms'] / t['alone_ms']:.1f}% of its bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms (median of {TIME_ROUNDS} rounds of "
+            f"{TIME_CALLS} back-to-back calls; plain: one call after two, "
+            f"in slices of {PLAIN_SLICE} lanes; on {card})")
+        out[name] = t
+    return out
 
 
 def phase_kernels(ik, intersect, s, device, errs, card):
@@ -514,34 +697,100 @@ def check_image(img, label, phase="main"):
         raise AssertionError(f"{label}: red left / green right tint missing")
 
 
-def render_16spp(T, integrator, ik, s, phase, card, before=None):
-    """Warm up, call before() if given, set the counts to 0, time
-    render_frames at 16 spp, and check that sample_n_frames(s, 17) gives
-    the same image. Returns (image, launches, plain_calls) of that run."""
+def pool_lanes(integrator, s, spp):
+    """P, the lanes of the pool that renders spp samples of state s."""
+    w, h = s.sub_dims
+    return integrator._pool_size(w * h, spp, integrator._scene_t_pad(s.scene))
+
+
+def pool_line(integrator, s, spp, out, secs, card):
+    """What a timed pool render printed: wall, rays, iterations, P, the
+    live share of its lane-iterations."""
+    p = pool_lanes(integrator, s, spp)
+    rays, iters = out["rays_traced"], out["iters"]
+    return (f"{secs:.3f} s, rays_traced={rays} (3 x active lanes per "
+            f"iteration), {rays / secs / 1e6:.2f} Mrays/s, iters={iters}, "
+            f"P={p} lanes, {100 * rays / (3 * p * iters):.2f}% of "
+            f"lane-iterations live, on {card}")
+
+
+def compare_pool_frames(phase, label, pool, frames, color):
+    """The pool against render_frames on the same streams: rays_traced,
+    the distance image and the points equal exactly, a colour image
+    within rtol 1e-5 (summation order) on every pixel."""
+    import torch
+    if color:
+        px = torch.isclose(pool["img"], frames["img"], rtol=1e-5,
+                           atol=0.0).all(dim=-1)
+    else:
+        px = (pool["img"] == frames["img"]).all(dim=-1)
+    equal = bool(px.all())
+    msg = (f"{label}: pool against render_frames: rays_traced "
+           f"{pool['rays_traced']} / {frames['rays_traced']}, "
+           f"{'colour within rtol 1e-5' if color else 'distance image equal'}"
+           f" on {int(px.sum())} of {px.numel()} pixels")
+    if "points" in pool:
+        same = torch.ones_like(pool["points"][1], dtype=torch.bool)
+        for x, y in zip(pool["points"], frames["points"]):
+            eq = x == y
+            same &= eq.all(dim=0) if eq.dim() == 2 else eq
+        equal &= bool(same.all())
+        msg += f", points equal on {int(same.sum())} of {same.numel()}"
+    log(phase, msg)
+    if pool["rays_traced"] != frames["rays_traced"] or not equal:
+        raise AssertionError(f"{label}: the pool differs from render_frames")
+
+
+def render_cell(T, integrator, ik, s, phase, card, before=None, after=None):
+    """One cell through the API: warm up, call before() if given, set the
+    counts to 0, time sample_n_frames(s, 17) (the pool at 16 spp; its
+    rays and iterations tapped from the same call), call after() if
+    given and read the counts. Then, outside the window: the pool again
+    from the same seed (bit for bit), and render_frames at the same 16
+    spp on the same state, timed, held against the pool. Returns (image,
+    launches, plain_calls, iters) of the API run."""
     import torch
     w, h = s.sub_dims
+    color = s.render_mode == "color"
+    args = (s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, w, h,
+            s.transmitter_kind, 16, s.render_mode)
     T.sample_n_frames(s, 1)   # warm-up: first launches, allocator
     if before is not None:
         before()
     torch.cuda.synchronize()
     ik.reset_counts()
+    pooled = []
     t0 = time.perf_counter()
-    out = integrator.render_frames(s.seed, s.nonce + 1, s.scene, s.cam,
-                                   s.ambience, w, h, s.transmitter_kind, 16,
-                                   s.render_mode)
+    with tap(integrator, "render_pooled", pooled):
+        img = T.sample_n_frames(s, 17)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    rays = out["rays_traced"]
-    img = T.sample_n_frames(s, 17)
-    torch.cuda.synchronize()
+    if after is not None:
+        after()
+        torch.cuda.synchronize()
     launches, plain = dict(ik.launches), dict(ik.plain_calls)
-    log(phase, f"render {w}x{h} 16 spp: {secs:.3f} s, rays_traced={rays} "
-        f"(3 x live lanes per bounce), {rays / secs / 1e6:.2f} Mrays/s "
-        f"on {card}")
-    if not torch.equal(img, out["img"]):
-        raise AssertionError("sample_n_frames(s, 17) differs from the timed "
-                             "16-spp render of the same streams")
-    return img, launches, plain
+    if len(pooled) != 1:
+        raise AssertionError("sample_n_frames did not run the pool once")
+    out = pooled[0][2]
+    log(phase, f"sample_n_frames(s, 17), the pool at {w}x{h} 16 spp: "
+        + pool_line(integrator, s, 16, out, secs, card))
+    again = integrator.render_pooled(*args)
+    if (not torch.equal(again["img"], img)
+            or again["rays_traced"] != out["rays_traced"]
+            or again["iters"] != out["iters"]):
+        raise AssertionError("two pool renders from one seed differ")
+    del again
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = integrator.render_frames(*args)
+    torch.cuda.synchronize()
+    fsecs = time.perf_counter() - t0
+    log(phase, f"render_frames {w}x{h} 16 spp on the same state: "
+        f"{fsecs:.3f} s, {frames['rays_traced'] / fsecs / 1e6:.2f} Mrays/s; "
+        f"the pool takes {secs / fsecs:.3f} of its wall; two pool renders "
+        f"from one seed: bit for bit")
+    compare_pool_frames(phase, f"{w}x{h} 16 spp", out, frames, color)
+    return img, launches, plain, out["iters"]
 
 
 def phase_main(T, integrator, ik, scene_arrays, card, device):
@@ -554,24 +803,30 @@ def phase_main(T, integrator, ik, scene_arrays, card, device):
     dense = s.scene.accel
     phi_cam = intersect.ray_features_t(*kc.render_rays(s)[0])
     k1 = []   # K1 on the camera rays, taken before the counts are set to 0
-    img, _, _ = render_16spp(
+    window = {}
+
+    def rest_of_window():
+        s2 = s
+        for _ in range(3):
+            s2, argb = T.step_render(s2)
+            if (tuple(argb.shape) != (SIZE, SIZE)
+                    or argb.dtype != torch.uint32):
+                raise AssertionError(f"step_render gave {argb.dtype} "
+                                     f"{tuple(argb.shape)}")
+        # the yardstick's one launch inside the window: the path never
+        # calls it, the smoke run holds the path's kernel to it
+        window["ex_t"], _ = ik.closest_hit_exact(
+            dense.coeffs, phi_cam, shapes.F32_HIGHEST, dense.chunk_bounds)
+        window["argb"] = argb
+
+    img, launches, plain, iters = render_cell(
         T, integrator, ik, s, "main", card,
         before=lambda: k1.extend(ik.closest_hit(
-            dense.coeffs, phi_cam, shapes.F32_HIGHEST, dense.chunk_bounds)))
-    s2 = s
-    for _ in range(3):
-        s2, argb = T.step_render(s2)
-        if tuple(argb.shape) != (SIZE, SIZE) or argb.dtype != torch.uint32:
-            raise AssertionError(f"step_render gave {argb.dtype} "
-                                 f"{tuple(argb.shape)}")
-    # the yardstick's one launch inside the window: the path never calls
-    # it, the smoke run holds the path's kernel to it
-    ex_t, _ = ik.closest_hit_exact(dense.coeffs, phi_cam, shapes.F32_HIGHEST,
-                                   dense.chunk_bounds)
-    torch.cuda.synchronize()
-    launches = dict(ik.launches)
-    plain = dict(ik.plain_calls)
-    log("main", f"launches={launches} plain_calls={plain}")
+            dense.coeffs, phi_cam, shapes.F32_HIGHEST, dense.chunk_bounds)),
+        after=rest_of_window)
+    ex_t, argb = window["ex_t"], window["argb"]
+    log("main", f"launches={launches} plain_calls={plain} (the 16-spp pool's "
+        f"{iters} iterations, one launch each, and 3 step_render frames)")
     differ = int((ex_t.view(torch.int32) != k1[0].view(torch.int32)).sum())
     log("main", f"the exact kernel inside the window, on the "
         f"{phi_cam.shape[1]} camera rays: {int(torch.isfinite(ex_t).sum())} "
@@ -599,32 +854,37 @@ def busy_us(spans):
     return total
 
 
-def phase_breakdown(integrator, ik, s, card, names, phase="breakdown",
-                    one_chunk=False):
-    """Where the time of one 1-spp render goes, for the kernels `names`
-    (closest first) that the render launches once per bounce iteration;
-    one_chunk: also time the dead-lane partition per bounce.
-    torch.profiler traces the card; the device is busy over the union of
-    its kernel and copy intervals, each taken once, and the share is of
-    the host-clock wall of the same profiled render (the profiler's own
-    host cost lengthens that wall, so the share is a lower bound)."""
+def phase_breakdown(integrator, ik, s, card, names, errs, label,
+                    phase="breakdown", one_chunk=False, with_points=False):
+    """Where the time of one PROFILE_SPP-spp pool render goes, for the
+    kernels `names` (closest first) that the pool launches once per
+    iteration; one_chunk: also time the dead-lane partition per
+    iteration. Then every query of that render against the plain version
+    and the exact kernel (check_pool_queries), and the two kernels timed
+    on one of them (pool_query_times), whose times it returns.
+    torch.profiler (utils/profiling.device_trace) traces the
+    card; the device is busy over the union of its kernel and copy
+    intervals, each taken once, and the share is of the host-clock wall
+    of the same profiled render (the profiler's own host cost lengthens
+    that wall, so the share is a lower bound)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from tracer_tpu_torch.utils import profiling
     w, h = s.sub_dims
 
     def render():
-        integrator.render_frames(s.seed, s.nonce + 1, s.scene, s.cam,
-                                 s.ambience, w, h, s.transmitter_kind, 1,
-                                 s.render_mode)
+        out = integrator.render_pooled(
+            s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, w, h,
+            s.transmitter_kind, PROFILE_SPP, s.render_mode,
+            with_points=with_points)
         torch.cuda.synchronize()
+        return out
 
     t0 = time.perf_counter()
-    render()
+    out = render()
     plain_wall = time.perf_counter() - t0
     n0 = ik.launches[names[0]]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.device_trace() as prof:
         t0 = time.perf_counter()
         render()
         wall = time.perf_counter() - t0
@@ -633,11 +893,12 @@ def phase_breakdown(integrator, ik, s, card, names, phase="breakdown",
     if not dev:
         raise AssertionError("the profiler recorded no device activity")
     busy = busy_us((e.time_range.start, e.time_range.end) for e in dev) / 1e6
-    log(phase, f"1-spp {w}x{h} render under torch.profiler: wall "
-        f"{wall:.4f} s ({plain_wall:.4f} s unprofiled), {iters} bounce "
-        f"iterations, {len(dev)} device ops ({len(dev) / iters:.0f} per "
-        f"iteration), device busy {busy:.4f} s = {100 * busy / wall:.1f}% of "
-        f"the profiled wall, on {card}")
+    log(phase, f"{PROFILE_SPP}-spp {w}x{h} pool render under torch.profiler: "
+        f"wall {wall:.4f} s ({plain_wall:.4f} s unprofiled), {iters} pool "
+        f"iterations launched ({out['iters']} with an active lane, P="
+        f"{pool_lanes(integrator, s, PROFILE_SPP)}), {len(dev)} device ops "
+        f"({len(dev) / iters:.0f} per iteration), device busy {busy:.4f} s = "
+        f"{100 * busy / wall:.1f}% of the profiled wall, on {card}")
     spans = {}
     for k in names:
         ks = [e.time_range.elapsed_us() for e in sorted(
@@ -645,30 +906,31 @@ def phase_breakdown(integrator, ik, s, card, names, phase="breakdown",
             key=lambda e: e.time_range.start)]
         if len(ks) != iters:
             raise AssertionError(f"{len(ks)} {k}_kernel spans in the trace, "
-                                 f"{iters} bounce iterations")
+                                 f"{iters} pool iterations")
         log(phase, f"{k}_kernel: {len(ks)} launches, "
             f"{sum(ks) / 1e3:.3f} ms on the device "
             f"({sum(ks) / len(ks) / 1e3:.4f} ms each), "
             f"{100 * sum(ks) / 1e6 / busy:.1f}% of device busy time")
         spans[k] = ks
     del prof, dev
-    # per bounce iteration: the live share of the lanes (the same frame
+    # per pool iteration: the live share of the lanes (the same render
     # again, its closest queries tapped at the wrapper) and the closest
     # kernel's span in the trace above
     from tracer_tpu_torch.utils import kernel_timing
-    queries = kernel_timing.bounce_queries(integrator, s)
+    queries, shadow = kernel_timing.pool_queries(integrator, s, PROFILE_SPP,
+                                                 with_points=with_points)
     if len(queries) != iters:
-        raise AssertionError(f"{len(queries)} closest queries in the frame, "
-                             f"{iters} bounce iterations")
+        raise AssertionError(f"{len(queries)} closest queries in the render, "
+                             f"{iters} pool iterations")
     live = [float((q[2] > 0).float().mean()) for q in queries]
-    log(phase, f"per bounce iteration, live share of {queries[0][1].shape[1]} "
-        f"lanes / {names[0]}_kernel ms in the profiled frame: "
+    log(phase, f"per pool iteration, live share of {queries[0][1].shape[1]} "
+        f"lanes / {names[0]}_kernel ms in the profiled render: "
         + ", ".join(f"{i}: {100 * p:.2f}% / {t / 1e3:.4f}"
                     for i, (p, t) in enumerate(zip(live, spans[names[0]])))
         + f"; lane-iterations live {100 * sum(live) / len(live):.2f}%")
     if one_chunk:
         rows = kernel_timing.bounce_times(queries, partition=True)
-        log(phase, "per bounce iteration on the one-chunk box, ms: kernel "
+        log(phase, "per pool iteration on the one-chunk box, ms: kernel "
             "alone / wrapper on the lanes as they come / wrapper with the "
             "dead lanes partitioned first (sort, gather, kernel, two "
             "scatters): "
@@ -680,6 +942,8 @@ def phase_breakdown(integrator, ik, s, card, names, phase="breakdown",
             f"{sum(r['partition_ms'] for r in rows):.4f} ms over "
             f"{len(rows)} iterations (median of {TIME_ROUNDS} rounds of "
             f"{TIME_CALLS} back-to-back calls each, on {card})")
+    check_pool_queries(ik, phase, label, queries, shadow, errs)
+    return pool_query_times(ik, phase, label, queries, shadow, card)
 
 
 def phase_reference(T, scene_arrays, device):
@@ -1031,12 +1295,14 @@ def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
     torch.cuda.empty_cache()
     phase_big_check(ik, intersect, device, errs)
     torch.cuda.empty_cache()
+    clock("bigscene kernels")
 
     # (3) the slice's render: cornell-sub6 through the entry points
     s = states[SLICE_LEVELS]
-    img, launches, plain = render_16spp(T, integrator, ik, s, "bigscene",
-                                        card)
-    log("bigscene", f"cornell-sub6 launches={launches} plain_calls={plain}")
+    img, launches, plain, iters = render_cell(T, integrator, ik, s,
+                                              "bigscene", card)
+    log("bigscene", f"cornell-sub6 launches={launches} plain_calls={plain} "
+        f"({iters} pool iterations with an active lane)")
     check_image(img, f"cornell-sub6 sample_n_frames {SIZE}x{SIZE} 16spp",
                 phase="bigscene")
     mean = float(img.mean())
@@ -1052,13 +1318,15 @@ def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
         raise AssertionError("the cornell-sub6 render did not run through "
                              "the streamed kernels alone")
 
-    # (4) breakdown and schedule statistics of one 1-spp render
-    phase_breakdown(integrator, ik, s, card,
-                    ("closest_hit_streamed", "any_hit_streamed"),
-                    phase="bigscene")
+    clock("bigscene render")
+    # (4) breakdown and schedule statistics of one 16-spp pool render
+    pool_times = phase_breakdown(
+        integrator, ik, s, card, ("closest_hit_streamed", "any_hit_streamed"),
+        errs, "cornell-sub6", phase="bigscene")
     schedule_stats(ik, intersect, s)
-    # (5) timing of the four kernels at cornell-sub6's shapes
-    return launches, phase_big_timing(ik, s, card)
+    clock("bigscene breakdown")
+    # (5) timing of the four kernels at cornell-sub6's per-frame shapes
+    return launches, phase_big_timing(ik, s, card), pool_times
 
 
 # ---------------------------------------------------------------------------
@@ -1221,25 +1489,25 @@ def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
                device=device)
     T.sample_points_n(s, 1)   # warm-up
     torch.cuda.synchronize()
-    frames = []
+    pooled = []
     ik.reset_counts()
     t0 = time.perf_counter()
-    with tap(integrator, "render_frames", frames):
+    with tap(integrator, "render_pooled", pooled):
         s2, pts = T.sample_points_n(s, LIDAR_SPP)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches, plain = dict(ik.launches), dict(ik.plain_calls)
-    if len(frames) != 1:
-        raise AssertionError("sample_points_n did not render once")
-    rays = frames[0][2]["rays_traced"]
-    del frames
+    if len(pooled) != 1:
+        raise AssertionError("sample_points_n did not run the pool once")
+    out = {k: v for k, v in pooled[0][2].items() if k != "points"}
+    del pooled
     has = pts[..., 3] > 0
     share = float(has.float().mean())
     log("lidar", f"sample_points_n {LIDAR_W}x{LIDAR_H} x {LIDAR_SPP} spp "
-        f"(config 2, {s.transmitter_kind} transmitter): {secs:.3f} s, "
-        f"rays_traced={rays}, {rays / secs / 1e6:.2f} Mrays/s; returns "
-        f"{100 * share:.2f}% of pixels; launches={launches} "
-        f"plain_calls={plain}; on {card}")
+        f"(config 2, {s.transmitter_kind} transmitter), the pool: "
+        + pool_line(integrator, s, LIDAR_SPP, out, secs, card)
+        + f"; returns {100 * share:.2f}% of pixels; launches={launches} "
+        f"plain_calls={plain}")
     if tuple(pts.shape) != (LIDAR_H, LIDAR_W, 4):
         raise AssertionError(f"points of shape {tuple(pts.shape)}")
     miss = torch.tensor([-1.0, -1.0, -1.0, 0.0], device=device)
@@ -1257,15 +1525,45 @@ def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
             or max(plain.values()) != 0):
         raise AssertionError("the capture did not run through K1 and K3")
     del pts
+    torch.cuda.empty_cache()
+
+    # the pool twice and render_frames at LIDAR_CHECK_SPP of the capture's
+    # 100 spp (the per-frame side is the slow one), same state and streams
+    args = (s.seed, s.nonce, s.scene, s.cam, s.ambience, LIDAR_W, LIDAR_H,
+            s.transmitter_kind, LIDAR_CHECK_SPP, s.render_mode)
+    runs = []
+    for fn in (integrator.render_pooled, integrator.render_pooled,
+               integrator.render_frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(fn(*args, with_points=True))
+        torch.cuda.synchronize()
+        runs[-1]["secs"] = time.perf_counter() - t0
+    pa, pb, fr = runs
+    if (not torch.equal(pa["img"], pb["img"])
+            or not all(torch.equal(x, y)
+                       for x, y in zip(pa["points"], pb["points"]))
+            or pa["rays_traced"] != pb["rays_traced"]):
+        raise AssertionError("two pool captures from one seed differ")
+    log("lidar", f"{LIDAR_W}x{LIDAR_H} x {LIDAR_CHECK_SPP} spp: the pool "
+        + pool_line(integrator, s, LIDAR_CHECK_SPP, pa, pa["secs"], card)
+        + f"; again {pb['secs']:.3f} s, image and points bit for bit; "
+        f"render_frames {fr['secs']:.3f} s, "
+        f"{fr['rays_traced'] / fr['secs'] / 1e6:.2f} Mrays/s")
+    compare_pool_frames("lidar", f"capture at {LIDAR_CHECK_SPP} spp", pa, fr,
+                        False)
+    del runs, pa, pb, fr
+    clock("lidar capture")
     capture_k1 = check_capture_queries(ik, integrator, s, card, errs)
     torch.cuda.empty_cache()
+    clock("lidar queries")
 
     # a 32x32 8-spp capture on the card against the same on the CPU
     dists = []
     for dev in (device, "cpu"):
         sm = T.init(0, 32, 32, 2, tris, tm, mats, cam_origin=CAM_ORIGIN,
                     device=dev)
-        o = integrator.render_frames(sm.seed, sm.nonce, sm.scene, sm.cam,
+        o = integrator.render_pooled(sm.seed, sm.nonce, sm.scene, sm.cam,
                                      sm.ambience, 32, 32, sm.transmitter_kind,
                                      8, sm.render_mode, with_points=True)
         dists.append(o["points"][1].cpu())
@@ -1303,9 +1601,202 @@ def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
     if not (means[0] < 1e-4 and means[1] > 10 * max(means[0], 1e-6)):
         raise AssertionError("the flash does not light the dark box")
 
-    phase_breakdown(integrator, ik, s, card, ("closest_hit", "any_hit"),
-                    phase="lidar")
-    return launches, capture_k1
+    pool_times = phase_breakdown(
+        integrator, ik, s, card, ("closest_hit", "any_hit"), errs,
+        "the capture", phase="lidar", with_points=True)
+    return launches, capture_k1, pool_times
+
+
+# ---------------------------------------------------------------------------
+# the LBVH accel and the checkpoint
+
+def grazing_lanes(label, mask, dense, phi, tmax, closest):
+    """Of the lanes in mask (where the LBVH and the dense accel differ
+    off the REL band), those a grazing triangle decides: (N,) bool. In
+    float64, from the coefficient rows, over every triangle of the lanes
+    in mask: a lane's deciding triangles are those whose validity flips
+    when each test moves by GRAZE_REL and, for a closest query, its two
+    nearest candidates; the lane is excused when one of them has |a| <=
+    GRAZE_A * TRI_EPS. Prints |a|, u, v and t of the deciding triangles
+    of up to 8 such lanes."""
+    import torch
+    from tracer_tpu_torch.ops import shapes
+    idx = torch.nonzero(mask)[:, 0]
+    out = torch.zeros_like(mask)
+    if not idx.numel():
+        return out
+    co, cb = dense.coeffs, dense.chunk_bounds
+    c = co.shape[1] // cb.shape[0]
+    p64 = phi[:, idx].double()
+    tm = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device
+                         ).double().expand(phi.shape[1])[idx]
+    parts = [co[:, ci * c:(ci + 1) * c].reshape(4 * c, 10).double() @ p64
+             for ci in range(cb.shape[0])]
+    a, nt, nu, nv = (torch.cat([p[k * c:(k + 1) * c] for p in parts])
+                     for k in range(4))
+    aa = a.abs()
+    inv_a = 1.0 / torch.where(a == 0, 1.0, a)
+    t, u, v = nt * inv_a, nu * inv_a, -nv * inv_a
+    tol_t = GRAZE_REL * torch.clamp_min(t.abs(), 1.0)
+
+    def tests(s):  # s = +1 loosens every test, -1 tightens it
+        return ((aa >= shapes.TRI_EPS * (1 - s * GRAZE_REL))
+                & (u >= -s * GRAZE_REL) & (v >= -s * GRAZE_REL)
+                & (u + v <= 1 + s * GRAZE_REL)
+                & (t > -s * tol_t) & (t < tm + s * tol_t))
+
+    loose = tests(1.0)
+    deciding = loose & ~tests(-1.0)
+    if closest:
+        cand = torch.where(loose, t, float("inf"))
+        near = torch.topk(cand, min(2, cand.shape[0]), dim=0, largest=False)
+        deciding |= torch.zeros_like(loose).scatter_(
+            0, near.indices, torch.isfinite(near.values))
+    least = torch.where(deciding, aa, float("inf")).amin(dim=0)
+    out[idx] = least <= GRAZE_A * shapes.TRI_EPS
+    for k in range(min(8, idx.shape[0])):
+        tris = torch.nonzero(deciding[:, k])[:4, 0].tolist()
+        log("lbvh", f"{label}: lane {int(idx[k])} differs off the {REL} "
+            f"band (tmax {float(tm[k]):.6g}); deciding triangles in float64"
+            + (": none" if not tris else "".join(
+                f"; storage index {j}: |a| = {float(aa[j, k]):.4e} = "
+                f"{float(aa[j, k]) / shapes.TRI_EPS:.3f} x TRI_EPS, u = "
+                f"{float(u[j, k]):.6e}, v = {float(v[j, k]):.6e}, t = "
+                f"{float(t[j, k]):.6e}" for j in tris))
+            + f"; excused (|a| <= {GRAZE_A:g} x TRI_EPS): {bool(out[idx[k]])}")
+    return out
+
+
+def phase_lbvh(T, integrator, intersect, scene_arrays, card, device):
+    """accel="lbvh" on the card (plain torch, no hand kernel) against the
+    dense accel (K1/K3): the Cornell box and subdivide(cornell_like, 3),
+    on the camera rays, the first-bounce rays and the 2N shadow lanes of
+    kernel_cases.render_rays at 512x512."""
+    import torch
+    from tracer_tpu_torch.models import scene as scene_mod
+    from tracer_tpu_torch.ops import bvh as bvh_mod
+    from tracer_tpu_torch.ops import shapes
+    from tracer_tpu_torch.utils import kernel_cases as kc
+    from tracer_tpu_torch.utils import profiling
+    for label, arrays in (("Cornell", scene_arrays),
+                          ("cornell-sub3", cornell_sub(LBVH_LEVELS))):
+        timer = profiling.PhaseTimer(device)
+        with timer.phase("build"):
+            tree = bvh_mod.build(torch.as_tensor(arrays[0], device=device))
+        del tree
+        sd = T.init(0, SIZE, SIZE, 0, *arrays, cam_origin=CAM_ORIGIN,
+                    accel="dense", device=device)
+        sl = T.init(0, SIZE, SIZE, 0, *arrays, cam_origin=CAM_ORIGIN,
+                    accel="lbvh", device=device)
+        if not isinstance(sl.scene.accel, bvh_mod.LBVH):
+            raise AssertionError("accel='lbvh' did not build an LBVH")
+        dense = sd.scene.accel
+        cam, first, (so, sdir, st) = kc.render_rays(sd)
+        for name, (o, d) in (("camera", cam), ("first-bounce", first)):
+            with timer.phase(f"closest {name}"):
+                ok_l, t_l, i_l, _, _ = scene_mod.closest_hit(
+                    sl.scene, shapes.F32_HIGHEST, o, d)
+            ok_d, t_d, i_d, _, _ = scene_mod.closest_hit(
+                sd.scene, shapes.F32_HIGHEST, o, d)
+            phi = intersect.ray_features_t(o, d)
+            edge, tie = kc.boundary_lanes(dense.coeffs, phi,
+                                          shapes.F32_HIGHEST,
+                                          dense.chunk_bounds)
+            both = ok_l & ok_d
+            # the LBVH returns input indices, the dense accel storage ones
+            i_d_in = dense.perm[torch.where(ok_d, i_d, 0).long()]
+            other = both & (i_l != i_d_in)
+            off = (((ok_l != ok_d) & ~edge)
+                   | (both & ~edge
+                      & ~torch.isclose(t_l, t_d, rtol=REL, atol=0.0))
+                   | (other & ~tie & ~edge))
+            bad = off & ~grazing_lanes(f"{label} closest_hit, {name} rays",
+                                       off, dense, phi, shapes.F32_HIGHEST,
+                                       True)
+            log("lbvh", f"{label} closest_hit on {o.shape[1]} {name} rays: "
+                f"{int(ok_l.sum())} hits (dense {int(ok_d.sum())}), ok "
+                f"differs on {int((ok_l != ok_d).sum())} lanes, another "
+                f"triangle on {int(other.sum())}; ok, t (rtol {REL}) or the "
+                f"triangle differ off the {REL} band on {int(off.sum())} "
+                f"lanes, not decided by a grazing triangle on "
+                f"{int(bad.sum())}")
+            if int(bad.sum()):
+                raise AssertionError(f"{label}: the LBVH's closest hit "
+                                     f"disagrees with the dense accel's")
+        with timer.phase("any"):
+            hit_l = scene_mod.any_hit(sl.scene, st, so, sdir)
+        hit_d = scene_mod.any_hit(sd.scene, st, so, sdir)
+        phi = intersect.ray_features_t(so, sdir)
+        edge, _ = kc.boundary_lanes(dense.coeffs, phi, st,
+                                    dense.chunk_bounds)
+        off = (hit_l != hit_d) & ~edge
+        bad = off & ~grazing_lanes(f"{label} any_hit", off, dense, phi, st,
+                                   False)
+        log("lbvh", f"{label} any_hit on {so.shape[1]} shadow lanes: "
+            f"{int(hit_l.sum())} occluded (dense {int(hit_d.sum())}), differs "
+            f"on {int((hit_l != hit_d).sum())} lanes, {int(off.sum())} off "
+            f"the {REL} band, {int(bad.sum())} not decided by a grazing "
+            f"triangle")
+        if int(bad.sum()):
+            lanes = torch.nonzero(bad)[:4, 0]
+            raise AssertionError(
+                f"{label}: the LBVH's any hit disagrees with the dense "
+                f"accel's, on lanes {lanes.tolist()}: origins "
+                f"{so[:, lanes].T.tolist()}, directions "
+                f"{sdir[:, lanes].T.tolist()}, tmax {st[lanes].tolist()}, "
+                f"LBVH {hit_l[lanes].tolist()}, dense {hit_d[lanes].tolist()}")
+        del sd, sl, cam, first, so, sdir, st
+        means = {}
+        for accel in ("dense", "lbvh"):
+            sm = T.init(0, 64, 64, 0, *arrays, cam_origin=CAM_ORIGIN,
+                        accel=accel, device=device)
+            with timer.phase(f"render {accel}"):
+                means[accel] = float(T.sample_n_frames(sm, 5).mean())
+        rel = abs(means["lbvh"] - means["dense"]) / means["dense"]
+        t = timer.totals
+        log("lbvh", f"{label} ({arrays[0].shape[0]} triangles): build "
+            f"{1e3 * t['build']:.1f} ms; closest_hit {1e3 * t['closest camera']:.1f}"
+            f" ms (camera) / {1e3 * t['closest first-bounce']:.1f} ms "
+            f"(first-bounce) per query of {SIZE * SIZE} rays, any_hit "
+            f"{1e3 * t['any']:.1f} ms per query of {2 * SIZE * SIZE} lanes; "
+            f"64x64 4-spp render mean {means['lbvh']:.5f} in "
+            f"{t['render lbvh']:.3f} s, dense {means['dense']:.5f} in "
+            f"{t['render dense']:.3f} s, relative difference {rel:.4f} "
+            f"(limit {MEAN_REL}); CUDA events, one call each, on {card}")
+        if rel > MEAN_REL:
+            raise AssertionError(f"{label}: the LBVH render's mean is not "
+                                 f"the dense render's")
+        torch.cuda.empty_cache()
+
+
+def phase_checkpoint(T, scene_arrays, device):
+    """A state saved and loaded on the card resumes a step bit for bit,
+    with either accel; load() puts it on the card by default."""
+    import tempfile
+    import torch
+    from tracer_tpu_torch.engine import keys
+    from tracer_tpu_torch.utils import checkpoint
+    for accel in ("dense", "lbvh"):
+        s = T.init(0, 64, 64, 0, *scene_arrays, cam_origin=CAM_ORIGIN,
+                   accel=accel, device=device)
+        s = T.step(T.step(T.key(keys.KEYDOWN, keys.SDLK_SPACE, s)))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.npz")
+            checkpoint.save(path, s)
+            size = os.path.getsize(path)
+            r = checkpoint.load(path)
+        if r.img.device.type != "cuda" or not r.scene.tris.is_cuda:
+            raise AssertionError("checkpoint.load did not load onto the card")
+        if (r.nonce, r.n_frames, r.mode) != (s.nonce, s.n_frames, s.mode):
+            raise AssertionError("the counters did not resume")
+        a, b = T.step(s), T.step(r)
+        same = torch.equal(a.img, b.img) and torch.equal(r.img, s.img)
+        log("checkpoint", f"accel={accel}: {size} bytes, loaded onto "
+            f"{r.img.device}; nonce {r.nonce}, n_frames {r.n_frames}; the "
+            f"next step from the loaded state equals the original's bit for "
+            f"bit: {same}")
+        if not same:
+            raise AssertionError("a loaded checkpoint did not resume the step")
 
 
 def main():
@@ -1362,34 +1853,57 @@ def main():
         f"{s.scene.accel.chunk_bounds.shape[0]} chunk(s) of "
         f"{s.scene.accel.coeffs.shape[1] // s.scene.accel.chunk_bounds.shape[0]}")
     cornell = phase_kernels(ik, intersect, s, device, errs, card)
+    clock("kernels")
     del s
     s, launches, cornell_mean = phase_main(T, integrator, ik, scene_arrays,
                                            card, device)
     phase_reference(T, scene_arrays, device)
-    phase_breakdown(integrator, ik, s, card, ("closest_hit", "any_hit"),
-                    one_chunk=True)
+    clock("main")
+    pool_times = phase_breakdown(
+        integrator, ik, s, card, ("closest_hit", "any_hit"), errs, "Cornell",
+        one_chunk=True)
+    clock("breakdown")
     del s
     torch.cuda.empty_cache()
-    big_launches, times = phase_bigscene(T, integrator, ik, intersect, card,
-                                         device, errs, cornell_mean)
+    big_launches, times, big_pool = phase_bigscene(
+        T, integrator, ik, intersect, card, device, errs, cornell_mean)
+    pool_times.update(big_pool)
+    clock("bigscene")
     launches.update({k: big_launches[k] for k in
                      ("closest_hit_streamed", "any_hit_streamed")})
     torch.cuda.empty_cache()
     k5 = phase_recip(device, card)
+    clock("recip")
     torch.cuda.empty_cache()
-    lidar_launches, capture_k1 = phase_lidar(T, integrator, ik, scene_arrays,
-                                             card, device, errs)
+    lidar_launches, capture_k1, capture_pool = phase_lidar(
+        T, integrator, ik, scene_arrays, card, device, errs)
     log("lidar", f"capture launches {lidar_launches}")
+    clock("lidar")
+    torch.cuda.empty_cache()
+    phase_lbvh(T, integrator, intersect, scene_arrays, card, device)
+    clock("lbvh")
+    phase_checkpoint(T, scene_arrays, device)
+    clock("checkpoint")
     cornell["closest_hit"].update(
         {f"capture_{f}": v for f, v in capture_k1.items()})
+    for k, t in capture_pool.items():
+        cornell[k].update({f"capture_pool_{f}": v for f, v in t.items()})
 
     fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms", "timed_at", "host_us",
               "library_host_us", "graph_ms", "library_graph_ms")
+    # ms, alone_ms, plain_ms and bound_ms of K1-K4: on a query of the
+    # pool, the shapes the main path gives the kernel (K1/K3 the Cornell
+    # render's, K2/K4 cornell-sub6's); frame_*, cornell_*, capture_*: the
+    # per-frame shapes of render_frames, where the kernels' history was
+    # measured. The yardstick is not on the path and keeps the latter.
     kernels = [{"name": f"{k}_kernel", "route": "cuda",
                 "source": "tracer_tpu_torch/csrc/intersect.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": errs[k], **times[k],
+                "max_abs_err": errs[k],
+                **(times[k] if k == EXACT else
+                   {**pool_times[k],
+                    **{f"frame_{f}": v for f, v in times[k].items()}}),
                 **{f"cornell_{f}": v for f, v in cornell.get(k, {}).items()}}
                for k in VARIANTS + (EXACT,)]
     # the exact kernel is a check, not a kernel of the path: its one

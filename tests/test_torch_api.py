@@ -131,8 +131,8 @@ def test_key_and_resize_parity():
 
 def test_cycled_config_renders_raise():
     """'t' cycles to the flash (1) and LiDAR (2) configs, whose frames now
-    render as the JAX package's do; what is still unported, the LBVH
-    accel, raises."""
+    render as the JAX package's do; the LBVH accel builds through init,
+    and an unknown accel raises."""
     js, ts = _pair()
     for conf, kind, mode in ((1, "flash", "color"),
                              (2, "scanning", "distance")):
@@ -145,9 +145,11 @@ def test_cycled_config_renders_raise():
                            atol=1e-5).all(axis=-1)
         assert px_ok.mean() >= 0.99 and float(ts.img.max()) > 0
     tris, tm, mats = _scene("cornell")
-    with pytest.raises(NotImplementedError,
-                       match=r"LBVH.*\(ROADMAP\.md, Queue 1\)"):
-        T.init(0, 8, 8, 0, tris, tm, mats, accel="lbvh", device="cpu")
+    from tracer_tpu_torch.ops import bvh as tbvh
+    lb = T.init(0, 8, 8, 0, tris, tm, mats, accel="lbvh", device="cpu")
+    assert isinstance(lb.scene.accel, tbvh.LBVH)
+    with pytest.raises(ValueError, match="unknown accel"):
+        T.init(0, 8, 8, 0, tris, tm, mats, accel="grid", device="cpu")
 
 
 def test_import_pulls_in_no_jax():

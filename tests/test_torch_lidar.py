@@ -430,6 +430,9 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(api.init).parameters["device"].default == "cuda"
     assert inspect.signature(measure_recip.measure).parameters[
         "device"].default == "cuda"
+    from tracer_tpu_torch.utils import checkpoint
+    assert inspect.signature(checkpoint.load).parameters[
+        "device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             save_demo.main(["-W", "4", "-H", "4", "-s", "1", "--out",

@@ -42,9 +42,16 @@ def test_build_scene(name):
     np.testing.assert_array_equal(ts.accel.perm.numpy(), js.accel.perm)
     np.testing.assert_allclose(ts.accel.coeffs.numpy(), js.accel.coeffs,
                                rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError,
-                       match=r"LBVH accel .*\(ROADMAP\.md, Queue 1\)"):
-        tscene.build_scene(tris, tm, mats, accel="lbvh", device="cpu")
+    # the LBVH accel: tri_mat in input order, the JAX twin's tree
+    jl = jax.tree.map(np.asarray,
+                      jscene.build_scene(tris, tm, mats, accel="lbvh"))
+    tl = tscene.build_scene(tris, tm, mats, accel="lbvh", device="cpu")
+    np.testing.assert_array_equal(tl.tri_mat.numpy(), jl.tri_mat)
+    for f in ("perm", "left", "right", "parent", "node_min", "node_max"):
+        np.testing.assert_array_equal(getattr(tl.accel, f).numpy(),
+                                      getattr(jl.accel, f))
+    with pytest.raises(ValueError, match="unknown accel"):
+        tscene.build_scene(tris, tm, mats, accel="octree", device="cpu")
     # the dense accel takes scenes above 64 chunks (superchunk walk)
     big, big_tm = testscenes.subdivide(tris, tm, levels=5)
     tb = tscene.build_scene(big, big_tm, mats, device="cpu")

@@ -1,18 +1,24 @@
 """Port parity: the host-side modules the port keeps of its own (the OBJ
 loader, the procedural Cornell box, the SDL key codes) give what the JAX
-package's originals give; and no source of the port, nor chip_smoke.py,
-imports jax or the JAX package."""
+package's originals give; checkpoint, profiling and argb_to_rgb behave as
+their JAX twins; and no source of the port, nor chip_smoke.py, imports
+jax or the JAX package."""
 
 import ast
 import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from tracer_tpu.engine import keys as jkeys
 from tracer_tpu.utils import objloader as jobj
 from tracer_tpu.utils import testscenes as jscenes
+from tracer_tpu.utils import image as jimage
+import tracer_tpu_torch as T
 from tracer_tpu_torch.engine import keys as tkeys
+from tracer_tpu_torch.utils import checkpoint, profiling
+from tracer_tpu_torch.utils import image as timage
 from tracer_tpu_torch.utils import kernel_cases as tkc
 from tracer_tpu_torch.utils import objloader as tobj
 from tracer_tpu_torch.utils import testscenes as tscenes
@@ -135,3 +141,106 @@ def test_port_sources_import_no_jax_package():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "tracer_tpu")]
     assert not bad
+
+
+def _small_state(accel="dense", size=8, conf=0):
+    return T.init(0, size, size, conf, *tscenes.cornell_like(),
+                  cam_origin=(0.0, 0.8, 1.8), accel=accel, device="cpu")
+
+
+@pytest.mark.parametrize("accel", ["dense", "lbvh"])
+def test_checkpoint_save_load_resume(accel, tmp_path):
+    """Standalone restore (no template): img, n_frames and nonce resume
+    exactly, with either accel."""
+    s = T.step(T.step(T.key(tkeys.KEYDOWN, tkeys.SDLK_SPACE,
+                            _small_state(accel))))
+    p = str(tmp_path / "ck.npz")
+    checkpoint.save(p, s)
+    restored = checkpoint.load(p, device="cpu")
+    assert type(restored.scene.accel) is type(s.scene.accel)
+    assert (restored.n_frames, restored.nonce, restored.seed,
+            restored.mode) == (s.n_frames, s.nonce, s.seed, s.mode) \
+        == (2, 2, 0, True)
+    assert torch.equal(restored.img, s.img)
+    for (ka, a), (kb, b) in zip(s.scene.state_dict().items(),
+                                restored.scene.state_dict().items()):
+        assert ka == kb and a.dtype == b.dtype and torch.equal(a, b), ka
+    for a, b in zip(s.cam.conf, restored.cam.conf):
+        assert torch.equal(a, b)
+    a, b = T.step(s), T.step(restored)
+    assert a.nonce == b.nonce == 3
+    assert torch.equal(a.img, b.img)
+    # a matching template passes
+    checkpoint.load(p, template=_small_state(accel), device="cpu")
+
+
+def test_checkpoint_rejects_mismatched_template(tmp_path):
+    p = str(tmp_path / "ck.npz")
+    checkpoint.save(p, _small_state())
+    with pytest.raises(ValueError, match="does not match template"):
+        checkpoint.load(p, template=_small_state(size=16), device="cpu")
+    with pytest.raises(ValueError, match="render_mode=color"):
+        checkpoint.load(p, template=_small_state(conf=2), device="cpu")
+
+
+def test_checkpoint_refuses_pickled_object(tmp_path):
+    """A file that holds a pickled object (and so could carry code) is
+    refused: load reads with allow_pickle=False, and save writes none."""
+    import json
+    p = str(tmp_path / "ck.npz")
+    s = _small_state()
+    checkpoint.save(p, s)
+    good = np.load(p, allow_pickle=False)
+    arrays = {k: good[k] for k in good.files}    # every leaf reads plainly
+    assert all(a.dtype != object for a in arrays.values())
+    evil = dict(arrays, img=np.array([[eval]], dtype=object))
+    np.savez_compressed(str(tmp_path / "evil.npz"), **evil)
+    with pytest.raises(ValueError, match="allow_pickle=False"):
+        checkpoint.load(str(tmp_path / "evil.npz"), device="cpu")
+    static = json.loads(bytes(arrays["__static__"]).decode())
+    static["version"] = 99
+    arrays["__static__"] = np.frombuffer(json.dumps(static).encode(),
+                                         dtype=np.uint8)
+    np.savez_compressed(str(tmp_path / "v99.npz"), **arrays)
+    with pytest.raises(ValueError, match="unsupported checkpoint version"):
+        checkpoint.load(str(tmp_path / "v99.npz"), device="cpu")
+
+
+def test_phase_timer_on_cpu():
+    t = profiling.PhaseTimer(device="cpu")
+    x = torch.arange(8.0)
+    with t.phase("a"):
+        x = x + 1
+    with t.phase("a"):
+        pass
+    with t.phase("b"):
+        x = x * 2
+    assert t.counts["a"] == 2 and t.counts["b"] == 1
+    assert t.totals["a"] >= 0.0
+    assert "a" in t.report() and "2 calls" in t.report()
+    assert "total_s" in t.as_json()
+    with pytest.raises(RuntimeError):
+        with t.phase("c"):
+            raise RuntimeError("phase body failed")
+    assert t.counts["c"] == 1    # a failing phase is still counted
+
+
+def test_device_trace_on_cpu(tmp_path):
+    with profiling.device_trace(str(tmp_path / "tr"), device="cpu") as prof:
+        torch.arange(64.0).sum()
+    assert any("sum" in e.key for e in prof.key_averages())
+    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+
+
+def test_argb_to_rgb_roundtrip_with_render():
+    fb = np.asarray([[0xFF112233, 0xFF445566]], np.uint32)
+    rgb = timage.argb_to_rgb(fb)
+    assert rgb.dtype == np.uint8
+    assert rgb[0, 0].tolist() == [0x11, 0x22, 0x33]
+    assert rgb[0, 1].tolist() == [0x44, 0x55, 0x66]
+    np.testing.assert_array_equal(rgb, jimage.argb_to_rgb(fb))
+    s, argb = T.step_render(_small_state())
+    got = timage.argb_to_rgb(argb.cpu().numpy())
+    want = (np.clip(s.img.numpy(), 0.0, 1.0) * 255.0).astype(np.uint8)
+    assert got.shape == (8, 8, 3) and got.max() > 0
+    np.testing.assert_array_equal(got, want)

@@ -7,16 +7,18 @@ written by hand in CUDA C++ for Hopper: the four intersection kernels
 The layout mirrors tracer_tpu:
 
   engine/     public API (init/step/render/key/resize/sample_n_frames/
-              sample_points_n/step_render), engine state, per-frame
-              wavefront integrator, NEE+MIS direct lighting with the
-              sensors' transmitter fan
+              sample_points_n/step_render), engine state, the wavefront
+              integrator (the pooled render with lane refill, and the
+              per-frame version it is held against), NEE+MIS direct
+              lighting with the sensors' transmitter fan
   models/     camera, sensor configs, lights, scene assembly
   ops/        vector math, counter-based RNG, spectra, geometry,
               materials, dense intersector, the kernels' wrappers and
-              their build (cuda_lib)
+              their build (cuda_lib), the LBVH (radix_tree, bvh)
   utils/      OBJ loader, procedural test scenes, PCD and PNG writers,
               conversion of a JAX engine state into this package's state,
-              the kernels' test cases, the reciprocal probe
+              checkpoint, profiling, the kernels' test cases and timing,
+              the pool's timing, the reciprocal probe
   frontends/  the LiDAR capture (python -m
               tracer_tpu_torch.frontends.save_demo)
   csrc/       CUDA C++ kernel sources, built with nvcc at first use

@@ -66,7 +66,7 @@ def _fit_img(s: EngineState) -> EngineState:
 
 def _render(s: EngineState, nonce: int, spp: int, with_points=False):
     w, h = s.sub_dims
-    return integrator.render_frames(
+    return integrator.render_pooled(
         s.seed, nonce, s.scene, s.cam, s.ambience, w, h, s.transmitter_kind,
         spp, s.render_mode, with_points=with_points)
 

@@ -1,21 +1,31 @@
 """Wavefront path integrator (port of tracer_tpu/engine/integrator.py).
 
-A flat pool of N = w*h lanes advances one bounce per iteration: one
-closest-hit query, one NEE+MIS direct-lighting estimate (one any_hit over
-2N shadow lanes) and one BSDF sample with unit-weight Russian roulette.
-The loop stops after PATH_LEN bounces or when every lane is dead (a host
-sync per bounce). With a transmitter (sensor configs 1 and 2) the fan
-hangs off each lane's primary ray and joins the scene lights.
+One bounce of a lane (_bounce): one closest-hit query, one NEE+MIS
+direct-lighting estimate (one any_hit over 2N shadow lanes) and one BSDF
+sample with unit-weight Russian roulette. With a transmitter (sensor
+configs 1 and 2) the fan hangs off each lane's primary ray and joins the
+scene lights. Two schedules run that body:
 
-render_frames ports the CONTRACT of the JAX package's render_pooled, not
-its schedule: sample s of pixel p draws from make_streams(seed, nonce+s,
-p). It runs spp per-frame wavefronts and merges each frame into (N,)
-buffers as it goes; the pooled lane refill is later work. The image is
-the mean of visualize_color in colour mode, and in distance mode the hue
-of the first sample (smallest s) with a return in the LiDAR window. The
-points are the closest windowed return per pixel over all samples, an
-exact tie in distance going to the newer sample, as the reference's fold
-keeps its new point (lib.fut:49-51).
+render_pooled, which the API calls, is the JAX package's render_pooled
+by its CONTRACT, not its XLA devices: a pool of P lanes in which a lane
+whose path has ended takes the next (sample, pixel) work item, so no
+lane idles through a bounce tail. Work items are handed out by a prefix sum
+over the idle lanes against a counter on the device; every (sample,
+pixel) writes a result slot of its own and the slots are merged in
+sample order, so the result does not depend on the order in which lanes
+finish and two runs give the same bits.
+
+render_frames is the plain per-frame version it is held against: spp
+whole wavefronts (sample_pixels -> path_trace), each a flat pool of N =
+w*h lanes that stops after PATH_LEN bounces or when every lane is dead
+(a host sync per bounce), merged into (N,) buffers as it goes.
+
+In both, sample s of pixel p draws from make_streams(seed, nonce+s, p).
+The image is the mean of visualize_color in colour mode, and in distance
+mode the hue of the first sample (smallest s) with a return in the LiDAR
+window. The points are the closest windowed return per pixel over all
+samples, an exact tie in distance going to the newer sample, as the
+reference's fold keeps its new point (lib.fut:49-51).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import torch
 from tracer_tpu_torch.engine import direct as direct_mod
 from tracer_tpu_torch.models import camera as cam_mod
 from tracer_tpu_torch.models import scene as scene_mod
+from tracer_tpu_torch.ops import intersect
+from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import materials, shapes
 from tracer_tpu_torch.ops import rng as prng
@@ -65,6 +77,61 @@ def _check_modes(transmitter_kind: str, render_mode: str = "color"):
                          f"{render_mode!r}")
 
 
+class Bounce(NamedTuple):
+    """What one bounce of the lane pool produces (_bounce)."""
+    state: torch.Tensor      # (N,) rng state after the bounce
+    hit: torch.Tensor        # (N,) bool: alive and hit a surface
+    radiance: torch.Tensor   # (N,) this bounce's record, 0 on idle lanes
+    cum_dist: torch.Tensor   # (N,) path distance so far
+    rec_dist: torch.Tensor   # (N,) cum_dist on a hit, +inf otherwise
+    scatters: torch.Tensor   # (N,) bool: the BSDF sample survived roulette
+    o: torch.Tensor          # (3, N) next ray of a scattering lane
+    d: torch.Tensor          # (3, N)
+
+
+def _bounce(state, scene: scene_mod.Scene, alive, first, o, d, wavelen,
+            ambient, cum_dist, trans) -> Bounce:
+    """One bounce of every lane: the closest hit, NEE + MIS direct light,
+    one BSDF sample and unit-weight Russian roulette
+    (tracer_tpu/engine/integrator.py:85-118, :757-845). alive (N,) bool;
+    first says where a hit adds the surface's own emission (a lane's
+    bounce 0): a python bool for all lanes, or (N,) bool. A lane that is
+    not alive queries at tmax 0: it hits nothing and the kernel leaves it
+    out of its walk; every use of its interaction is masked."""
+    far = torch.as_tensor(shapes.F32_HIGHEST, dtype=torch.float32,
+                          device=d.device)
+    inter = scene_mod.closest_interaction(
+        scene, torch.where(alive, far, 0.0), o, d, wavelen)
+    hit = alive & inter.ok
+    miss = alive & ~inter.ok
+
+    wo = -d
+    state, direct = direct_mod.direct_radiance(
+        state, scene, wo, inter, wavelen, trans, mask=hit)
+    if first is True:
+        lit = direct + inter.emission_at_wl
+    elif first is False:
+        lit = direct
+    else:
+        lit = direct + torch.where(first, inter.emission_at_wl, 0.0)
+    cum_dist = torch.where(hit, cum_dist + inter.t, cum_dist)
+    rec_dist = torch.where(hit, cum_dist, float("inf"))
+    radiance = torch.where(hit, lit, torch.where(miss, ambient, 0.0))
+
+    state, wi, bsdf, pdf_val, pdf_kind = materials.sample_dir(
+        state, wo, inter.normal, inter.mat)
+    pdf = torch.where(pdf_kind == materials.PDF_DELTA, 1.0,
+                      torch.where(pdf_kind == materials.PDF_NONZERO,
+                                  pdf_val, 0.0))
+    cos_falloff = torch.abs(la.v3_dot(inter.normal, wi))
+    p_terminate = 1.0 - bsdf * cos_falloff / pdf
+    state, u = prng.next_unit(state)
+    scatters = hit & (pdf != 0) & ~(u < p_terminate)
+    o_new, d_new = shapes.mkray_adjust_acne_v(inter.pos, inter.normal, wi)
+    return Bounce(state, hit, radiance, cum_dist, rec_dist, scatters,
+                  o_new, d_new)
+
+
 def path_trace(state, scene: scene_mod.Scene, origin, d, wavelen, ambience,
                trans: direct_mod.Transmitter | None = None):
     """Trace the lane pool through <= PATH_LEN bounces
@@ -81,40 +148,18 @@ def path_trace(state, scene: scene_mod.Scene, origin, d, wavelen, ambience,
     dist = torch.full((PATH_LEN, n), float("inf"), device=dev)
     rad = torch.zeros((PATH_LEN, n), device=dev)
     rays = 0
-    far = torch.as_tensor(shapes.F32_HIGHEST, dtype=torch.float32, device=dev)
     for i in range(PATH_LEN):
         live = int(alive.sum())   # host sync: the early exit
         if live == 0:
             break
-        # a dead lane queries at tmax 0: it hits nothing and the kernel
-        # leaves it out of its walk; every use of inter below is masked
-        inter = scene_mod.closest_interaction(
-            scene, torch.where(alive, far, 0.0), o, d, wavelen)
-        hit = alive & inter.ok
-        miss = alive & ~inter.ok
-
-        wo = -d
-        state, direct = direct_mod.direct_radiance(
-            state, scene, wo, inter, wavelen, trans, mask=hit)
-        radiance = direct + inter.emission_at_wl if i == 0 else direct
-        cum_dist = torch.where(hit, cum_dist + inter.t, cum_dist)
-        dist[i] = torch.where(hit, cum_dist, float("inf"))
-        rad[i] = torch.where(hit, radiance, torch.where(miss, ambient, 0.0))
-
-        state, wi, bsdf, pdf_val, pdf_kind = materials.sample_dir(
-            state, wo, inter.normal, inter.mat)
-        pdf = torch.where(pdf_kind == materials.PDF_DELTA, 1.0,
-                          torch.where(pdf_kind == materials.PDF_NONZERO,
-                                      pdf_val, 0.0))
-        cos_falloff = torch.abs(la.v3_dot(inter.normal, wi))
-        p_terminate = 1.0 - bsdf * cos_falloff / pdf
-        state, u = prng.next_unit(state)
-        alive_next = hit & (pdf != 0) & ~(u < p_terminate)
-
-        o_new, d_new = shapes.mkray_adjust_acne_v(inter.pos, inter.normal, wi)
-        o = torch.where(alive_next, o_new, o)
-        d = torch.where(alive_next, d_new, d)
-        alive = alive_next
+        b = _bounce(state, scene, alive, i == 0, o, d, wavelen, ambient,
+                    cum_dist, trans)
+        state, cum_dist = b.state, b.cum_dist
+        dist[i] = b.rec_dist
+        rad[i] = b.radiance
+        o = torch.where(b.scatters, b.o, o)
+        d = torch.where(b.scatters, b.d, d)
+        alive = b.scatters
         rays += 3 * live
     return state, PathRecords(distance=dist, radiance=rad), rays
 
@@ -319,6 +364,257 @@ def render_frames(seed: int, nonce: int, scene: scene_mod.Scene,
     else:
         img = la.v3_to_array(_distance_rgb(first_d)).reshape(h, w, 3)
     out = {"img": img, "rays_traced": rays}
+    if with_points:
+        out["points"] = best
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The pooled render: lane refill (tracer_tpu/engine/integrator.py:436-984)
+
+# Most lanes of the pool, by what the closest-hit query costs: a scene
+# whose triangles stay resident in shared memory (K1/K3) and one that is
+# streamed chunk by chunk (K2/K4). The loop is bound by the host's
+# dispatch of ~2,400-3,200 eager ops per iteration whatever P, so more
+# lanes mean fewer iterations until the device's time per iteration
+# passes the host's and the drain tail (<= PATH_LEN iterations) is most
+# of the run. Measured on an NVIDIA H100 at 700 W
+# (python -m tracer_tpu_torch.utils.pool_timing, seconds of two runs each,
+# at P = n/4 .. 16n of n pixels): 512x512 x 16 spp Cornell 3.59-3.61,
+# 1.77-1.82, 1.06-1.68 (P = n), 0.78-1.40, 0.59-1.17, 0.70-0.90 (8n =
+# 2,097,152), 1.16-1.19; the 640x480 x 100 spp capture 27.2-28.6,
+# 13.1-14.7, 7.7-10.7, 3.8-5.0, 2.0-3.1, 1.84-1.99 (8n), 2.34-2.35;
+# cornell-sub6 (streamed) 6.2-6.9, 3.2-3.6, 2.0-2.4, 1.67-2.11 (2n =
+# 524,288), 1.72-2.03, 2.10-2.14, 3.65. One sample per pixel (`step`) at
+# 800x600 and 512x512: P = n/2 and n within their spread, n/4 slower; the
+# cap leaves P = n there.
+POOL_LANES_RESIDENT = 2_097_152
+POOL_LANES_STREAMED = 524_288
+# Per-(sample, pixel) result slots held at once; a render that needs more
+# runs in rounds of whole samples, merged in sample order.
+STORE_BYTES = 2 << 30
+
+
+def _scene_t_pad(scene: scene_mod.Scene) -> int:
+    """Padded triangle count of the dense accel, the triangle count of
+    any other: what one closest-hit query scans at most."""
+    if isinstance(scene.accel, intersect.DenseTris):
+        return int(scene.accel.coeffs.shape[1])
+    return int(scene.tris.shape[0])
+
+
+def _pool_size(n: int, spp: int, t_pad: int) -> int:
+    """Lanes P of the pool for n pixels x spp samples over a scene of
+    t_pad padded triangles: every work item at once, up to the cap of
+    the scene's kind (the constants above). P need not divide n: work
+    item j is sample j // n of pixel j % n whatever lane takes it."""
+    cap = (POOL_LANES_STREAMED if t_pad > ik.STREAM_MIN_T_PAD
+           else POOL_LANES_RESIDENT)
+    return max(1, min(n * spp, cap))
+
+
+def _fresh_samples(seed: int, nonce: int, cam: cam_mod.Camera, w: int,
+                   full_h: int, row0: int, s, pix):
+    """The camera sample of work item (s, pix) on every lane: stream
+    make_streams(seed, nonce + s, pixel id in the full frame), then the
+    wavelength, the channel and the primary ray as sample_pixels draws
+    them. Returns (state, wavelen, channel, origin (3, P), dir (3, P))."""
+    jx = (pix % w).to(torch.float32)
+    iy = float(full_h) - ((pix // w).to(torch.float32) + float(row0)) - 1.0
+    state = prng.make_streams_per_lane(seed, prng.as_u32(nonce + s),
+                                       pix + row0 * w)
+    state, wavelen, channel = cam_mod.sample_wavelength(state, cam.conf)
+    state, origin, d = cam_mod.sample_ray(state, cam, (w, full_h), jx, iy)
+    return state, wavelen, channel, origin.expand(3, pix.shape[0]), d
+
+
+def _pool_round(seed, nonce, scene, cam, ambience, w, h, transmitter_kind,
+                spp, row0, full_h, pool, color, with_points, spp_factor):
+    """Run `spp` samples of every pixel through a pool of `pool` lanes.
+    Returns (store, live): store maps a name to the (spp, n) results of
+    every (sample, pixel) slot ("pos": (3, spp, n)), live is the (iters,)
+    int64 count of active lanes per iteration, zeros past the end."""
+    dev = cam.origin.device
+    n = w * h
+    total = n * spp
+    f32 = {"dtype": torch.float32, "device": dev}
+    i64 = {"dtype": torch.int64, "device": dev}
+    ambience = ambience.to(dev)
+    flash = (direct_mod.transmitter(cam, transmitter_kind, None)
+             if transmitter_kind == cam_mod.TRANSMITTER_FLASH else None)
+
+    # one slot per work item and a last one that takes the writes of the
+    # lanes that did not end: no two lanes share a real slot, so the
+    # stores hold the same values whatever order the lanes finish in
+    store = {}
+    if color:
+        store["rad"] = torch.zeros((total + 1,), **f32)
+        store["chan"] = torch.zeros((total + 1,), dtype=torch.int8,
+                                    device=dev)
+    if not color or with_points:
+        store["mind"] = torch.full((total + 1,), float("inf"), **f32)
+    if with_points:
+        store["pos"] = torch.zeros((3, total + 1), **f32)
+        store["int"] = torch.zeros((total + 1,), **f32)
+
+    next_item = torch.zeros((), **i64)
+    active = torch.zeros((pool,), dtype=torch.bool, device=dev)
+    item = torch.full((pool,), total, **i64)
+    state = torch.zeros((pool,), **i64)
+    bounce = torch.zeros((pool,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((pool,), **f32)
+    o = d = po = pd = torch.zeros((3, pool), **f32)
+    wavelen = cum_dist = sample_rad = sample_int = zero
+    chan = torch.zeros((pool,), dtype=torch.int32, device=dev)
+    sample_min_d = torch.full((pool,), float("inf"), **f32)
+    sample_pos = torch.zeros((3, pool), **f32)
+    live = []
+
+    full_iters = -(-total // pool)     # no exit before every item is out
+    max_iters = full_iters * PATH_LEN + PATH_LEN + 4
+    for it in range(1, max_iters + 1):
+        # refill: the r-th idle lane takes item next_item + r; the counter
+        # stays on the device. The camera sample is drawn for every lane
+        # and selected: drawing it for the starting lanes alone needs
+        # their indices on the host
+        idle = ~active
+        rank = torch.cumsum(idle, 0)
+        cand = next_item + rank - 1
+        start = idle & (cand < total)
+        next_item = torch.clamp_max(next_item + rank[-1], total)
+        item = torch.where(start, cand, item)
+        s_new = torch.div(item, n, rounding_mode="floor")
+        fresh = _fresh_samples(seed, nonce, cam, w, full_h, row0, s_new,
+                               item - s_new * n)
+        state = torch.where(start, fresh[0], state)
+        wavelen = torch.where(start, fresh[1], wavelen)
+        chan = torch.where(start, fresh[2], chan)
+        po = torch.where(start, fresh[3], po)
+        pd = torch.where(start, fresh[4], pd)
+        o = torch.where(start, po, o)
+        d = torch.where(start, pd, d)
+        bounce = torch.where(start, 0, bounce)
+        cum_dist = torch.where(start, 0.0, cum_dist)
+        sample_rad = torch.where(start, 0.0, sample_rad)
+        sample_min_d = torch.where(start, float("inf"), sample_min_d)
+        active = active | start
+        live.append(active.sum())
+
+        # the transmitter fan hangs off the PRIMARY ray
+        trans = (flash if flash is not None else
+                 direct_mod.transmitter(cam, transmitter_kind, pd))
+        b = _bounce(state, scene, active, bounce == 0, o, d, wavelen,
+                    spec.lookup_table(wavelen, ambience), cum_dist, trans)
+        state, cum_dist = b.state, b.cum_dist
+        sample_rad = sample_rad + b.radiance
+        closer = ((b.radiance > 0) & (b.rec_dist > LIDAR_MIN_D)
+                  & (b.rec_dist < LIDAR_MAX_D) & active
+                  & (b.rec_dist < sample_min_d))
+        sample_min_d = torch.where(closer, b.rec_dist, sample_min_d)
+        if with_points:
+            sample_pos = torch.where(closer, po + b.rec_dist * pd, sample_pos)
+            sample_int = torch.where(closer, b.radiance * spp_factor,
+                                     sample_int)
+        continues = b.scatters & (bounce + 1 < PATH_LEN)
+        ended = active & ~continues
+        o = torch.where(continues, b.o, o)
+        d = torch.where(continues, b.d, d)
+        bounce = bounce + 1
+        active = continues
+
+        slot = torch.where(ended, item, total)
+        if color:
+            store["rad"].index_copy_(0, slot, sample_rad)
+            store["chan"].index_copy_(0, slot, chan.to(torch.int8))
+        if "mind" in store:
+            store["mind"].index_copy_(0, slot, sample_min_d)
+        if with_points:
+            store["pos"].index_copy_(1, slot, sample_pos)
+            store["int"].index_copy_(0, slot, sample_int)
+
+        # the exit flag is read on the host only once every work item
+        # may have been handed out
+        if it >= full_iters and not bool(active.any()
+                                         | (next_item < total)):
+            break
+    out = {k: v[..., :total].reshape(*v.shape[:-1], spp, n)
+           for k, v in store.items()}
+    return out, torch.stack(live)
+
+
+def render_pooled(seed: int, nonce: int, scene: scene_mod.Scene,
+                  cam: cam_mod.Camera, ambience, w: int, h: int,
+                  transmitter_kind: str, spp: int, render_mode: str,
+                  row0: int = 0, full_h: int | None = None,
+                  with_points: bool = False):
+    """Render spp samples per pixel with lane refill: a pool of
+    _pool_size lanes in which a lane whose path has ended takes the next
+    (sample, pixel) work item, so that no lane idles through a bounce
+    tail (tracer_tpu/engine/integrator.py:436-984). Sample s of pixel p
+    draws from make_streams(seed, nonce + s, p), as render_frames does;
+    (row0, full_h) render rows row0 .. row0 + h of a frame full_h high.
+
+    Returns {"img": (h, w, 3) f32, "rays_traced": int (3 x active lanes
+    per iteration), "iters": int (iterations with an active lane)} and,
+    with with_points, "points": (pos (3, N), distance (N,), intensity
+    (N,)). Every (sample, pixel) writes a slot of its own and the slots
+    are merged in sample order, so image and points do not depend on the
+    order in which lanes finish: the colour is the mean over samples, the
+    distance that of the smallest s with a windowed return, the point
+    the strict minimum in distance, a tie going to the larger s
+    (merge_returns). Neither refill nor accumulation reads the host."""
+    _check_modes(transmitter_kind, render_mode)
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    full_h = h if full_h is None else full_h
+    dev = cam.origin.device
+    n = w * h
+    color = render_mode == "color"
+    pool = _pool_size(n, spp, _scene_t_pad(scene))
+    slot_bytes = (5 if color else 4) + (20 if with_points else 0)
+    per_round = max(1, min(spp, STORE_BYTES // (n * slot_bytes)))
+
+    n_channels = cam.conf.sensor_color.shape[0]
+    acc = torch.zeros((3, n), device=dev) if color else None
+    first_d = None if color else torch.full((n,), float("inf"), device=dev)
+    best = None
+    lives = []
+    for s0 in range(0, spp, per_round):
+        s1 = min(spp, s0 + per_round)
+        store, live = _pool_round(
+            seed, (nonce + s0) & prng.MASK, scene, cam, ambience, w, h,
+            transmitter_kind, s1 - s0, row0, full_h, pool, color,
+            with_points, 1.0 / spp)
+        lives.append(live)
+        if color:
+            for k in range(s1 - s0):   # in sample order, as render_frames
+                hue = cam.conf.sensor_color[store["chan"][k].long()].T
+                acc += (store["rad"][k] * hue) * float(n_channels)
+        else:
+            mind = store["mind"]
+            k = torch.isfinite(mind).to(torch.uint8).argmax(dim=0)
+            first_d = torch.where(torch.isfinite(first_d), first_d,
+                                  torch.gather(mind, 0, k[None])[0])
+        if with_points:
+            mind = store["mind"]
+            best_d = mind.amin(dim=0)
+            has = torch.isfinite(best_d)
+            # the last sample at the least distance
+            k = (s1 - s0 - 1) - (mind.flip(0) == best_d).to(
+                torch.uint8).argmax(dim=0)
+            pos = torch.gather(store["pos"], 1,
+                               k[None, None].expand(3, 1, -1)).squeeze(1)
+            inten = torch.gather(store["int"], 0, k[None])[0]
+            new = (torch.where(has, pos, -1.0), best_d,
+                   torch.where(has, inten, 0.0))
+            best = new if best is None else merge_returns(best, new)
+    if color:
+        img = la.v3_to_array(acc * (1.0 / spp)).reshape(h, w, 3)
+    else:
+        img = la.v3_to_array(_distance_rgb(first_d)).reshape(h, w, 3)
+    live = torch.cat(lives)
+    counts = torch.stack([3 * live.sum(), (live > 0).sum()]).tolist()
+    out = {"img": img, "rays_traced": counts[0], "iters": counts[1]}
     if with_points:
         out["points"] = best
     return out

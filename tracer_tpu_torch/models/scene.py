@@ -1,10 +1,12 @@
-"""Scene assembly: triangles + material table + lights + the dense
-intersector (port of tracer_tpu/models/scene.py).
+"""Scene assembly: triangles + material table + lights + the
+acceleration structure (port of tracer_tpu/models/scene.py).
 
 The scene is an nn.Module whose tensors are registered buffers, so
-`.to(device)` moves it whole. Only the dense accel is ported: it takes
-every scene up to DENSE_THRESHOLD triangles; the LBVH (and "auto" above
-that) raises.
+`.to(device)` moves it whole. The accel is the dense intersector
+(ops/intersect.py: the hand-written kernels on the card) or the LBVH
+(ops/bvh.py: plain torch). "auto" is the dense accel up to
+DENSE_THRESHOLD triangles and refuses a larger scene; it never picks the
+LBVH.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import torch
 from torch import nn
 
 from tracer_tpu_torch.models import lights as lights_mod
+from tracer_tpu_torch.ops import bvh as bvh_mod
 from tracer_tpu_torch.ops import intersect, materials
+from tracer_tpu_torch.ops import linalg as la
 
 DENSE_THRESHOLD = 2_500_000
 
@@ -24,8 +28,9 @@ DENSE_THRESHOLD = 2_500_000
 class Scene(nn.Module):
     """tris (T, 3, 3); mat_ix (max(T,1),) input-order material ids;
     mat_rows (max(M,1), 28); tri_mat (max(T,1),) material id per triangle
-    in the accel's storage order; lights; light_table (L, 23) packed
-    [tri 9 | emission 12 | theta | kind]; accel the DenseTris."""
+    in the order of the accel's returned triangle index; lights;
+    light_table (L, 23) packed [tri 9 | emission 12 | theta | kind];
+    accel a DenseTris or an LBVH."""
 
     def __init__(self, tris, mat_ix, mat_rows, tri_mat, lights, light_table,
                  accel):
@@ -94,7 +99,8 @@ def add_point_light(scene: Scene, pos, emission) -> Scene:
 def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
                 device) -> Scene:
     """Assemble a scene from loader arrays on `device`: tris (T, 3, 3) f32,
-    tri_mats (T,) u32, mat_rows (M, 28) f32. accel: "dense" or "auto"."""
+    tri_mats (T,) u32, mat_rows (M, 28) f32. accel: "dense", "lbvh" or
+    "auto" (the dense accel, up to DENSE_THRESHOLD triangles)."""
     tris_np = np.asarray(tris_np, np.float32).reshape(-1, 3, 3)
     tri_mats_np = np.asarray(tri_mats_np, np.int64)
     mat_rows_np = np.asarray(mat_rows_np, np.float32).reshape(-1, 28)
@@ -102,22 +108,33 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
     mat_ix_padded = tri_mats_np if t > 0 else np.zeros((1,), np.int64)
     if mat_rows_np.shape[0] == 0:
         mat_rows_np = np.zeros((1, 28), np.float32)
-    if accel == "lbvh" or (accel == "auto" and t > DENSE_THRESHOLD):
-        raise NotImplementedError(
-            "the LBVH accel is not ported yet (ROADMAP.md, Queue 1); "
-            f"this scene has {t} triangles, the dense accel takes up to "
-            f"{DENSE_THRESHOLD}")
-    if accel not in ("dense", "auto"):
-        raise ValueError(f"unknown accel {accel!r}")
+    if accel == "auto":
+        if t > DENSE_THRESHOLD:
+            raise ValueError(
+                f"scene has {t} triangles, above the verified dense/"
+                f"streaming cap ({DENSE_THRESHOLD}); pass accel='lbvh' "
+                f"explicitly (plain torch, no hand-written kernel) or "
+                f"accel='dense' to try the streaming intersector past its "
+                f"verified size")
+        accel = "dense"
     tris = torch.as_tensor(tris_np, device=device)
-    acc = intersect.build_dense(
-        tris, aux=torch.as_tensor(mat_ix_padded[:t].astype(np.float32),
-                            device=device))
-    if t > 0:
-        order = acc.perm[:t].long().cpu().numpy()
-        row_ix = mat_ix_padded[order]
-    else:
+    # tri_mat is indexed by the accel's returned triangle index: the dense
+    # intersector stores its triangles in morton order, the LBVH maps its
+    # hits back to input order itself
+    if accel == "dense":
+        acc = intersect.build_dense(
+            tris, aux=torch.as_tensor(mat_ix_padded[:t].astype(np.float32),
+                                      device=device))
+        if t > 0:
+            order = acc.perm[:t].long().cpu().numpy()
+            row_ix = mat_ix_padded[order]
+        else:
+            row_ix = mat_ix_padded
+    elif accel == "lbvh":
+        acc = bvh_mod.build(tris)
         row_ix = mat_ix_padded
+    else:
+        raise ValueError(f"unknown accel {accel!r}")
     lights = extract_lights(tris_np, tri_mats_np, mat_rows_np).to(device)
     return Scene(
         tris=tris,
@@ -130,15 +147,29 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
         accel=acc)
 
 
+def _rays_as_rows(origin, d):
+    """V3 rays (3, N) or (3, 1) as the (N, 3) rows the LBVH walks."""
+    n = max(origin.shape[1], d.shape[1])
+    return (la.v3_to_array(origin.expand(3, n)),
+            la.v3_to_array(d.expand(3, n)))
+
+
 def closest_hit(scene: Scene, tmax, origin, d):
     """Rays are V3 (3,N); returns (ok, t, tri_idx, pos (3,N), normal (3,N))
-    with tri_idx in the dense accel's storage (morton) order."""
-    return intersect.closest_hit(scene.accel, tmax, origin, d)[:5]
+    with tri_idx in the accel's order: storage (morton) order for the
+    dense accel, input order for the LBVH."""
+    if isinstance(scene.accel, intersect.DenseTris):
+        return intersect.closest_hit(scene.accel, tmax, origin, d)[:5]
+    ok, t, idx, pos, nrm = bvh_mod.closest_hit(scene.accel, tmax,
+                                               *_rays_as_rows(origin, d))
+    return ok, t, idx, la.v3_from_array(pos), la.v3_from_array(nrm)
 
 
 def any_hit(scene: Scene, tmax, origin, d):
     """Shadow query; rays are V3 (3,N)."""
-    return intersect.any_hit(scene.accel, tmax, origin, d)
+    if isinstance(scene.accel, intersect.DenseTris):
+        return intersect.any_hit(scene.accel, tmax, origin, d)
+    return bvh_mod.any_hit(scene.accel, tmax, *_rays_as_rows(origin, d))
 
 
 class Interaction(NamedTuple):
@@ -153,10 +184,16 @@ class Interaction(NamedTuple):
 
 def closest_interaction(scene: Scene, tmax, origin, d, wavelen) -> Interaction:
     """closest_hit + material row fetch at the hero wavelength; the
-    material id rides the accel's aux column."""
-    ok, t, _, pos, normal, aux = intersect.closest_hit(scene.accel, tmax,
-                                                        origin, d)
-    rows_t = scene.mat_rows[aux.long()].T   # (28, N)
+    material id rides the dense accel's aux column, and comes from
+    tri_mat by the LBVH's triangle index."""
+    if isinstance(scene.accel, intersect.DenseTris):
+        ok, t, _, pos, normal, aux = intersect.closest_hit(
+            scene.accel, tmax, origin, d)
+        lane_mat = aux.long()
+    else:
+        ok, t, tri_idx, pos, normal = closest_hit(scene, tmax, origin, d)
+        lane_mat = scene.tri_mat[torch.where(ok, tri_idx, 0).long()].long()
+    rows_t = scene.mat_rows[lane_mat].T   # (28, N)
     mat, emission = materials.at_wavelength_rows(rows_t, wavelen)
     return Interaction(ok=ok, t=t, pos=pos, normal=normal, mat=mat,
                        emission_at_wl=emission)

@@ -95,3 +95,30 @@ def disk_sectors_v(p, normal, radius, n_sectors: int):
         v1 = math.cos(b1) * right + math.sin(b1) * up
         out.append((p, p + radius * v1, p + radius * v0))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Boxes, in the (..., 3) layout of the LBVH (tracer_tpu/ops/shapes.py:94-121)
+
+def aabb_center(aabb_min, aabb_max):
+    return (aabb_min + aabb_max) * 0.5
+
+
+def bounding_box_triangle(tri):
+    """(min (..., 3), max (..., 3)) over the three vertices of (..., 3, 3)
+    triangles."""
+    return tri.amin(dim=-2), tri.amax(dim=-2)
+
+
+def hit_aabb(tmax, origin, d, aabb_min, aabb_max):
+    """Slab test over (..., 3) rays and boxes: tmin starts at 0, each
+    axis' upper bound is inflated by (1 + AABB_EPS), and a box is missed
+    when its exit is not after its entry."""
+    inv_d = 1.0 / d
+    t0 = (aabb_min - origin) * inv_d
+    t1 = (aabb_max - origin) * inv_d
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1) * (1.0 + AABB_EPS)
+    tmin = torch.clamp_min(lo.amax(dim=-1), 0.0)
+    tmax_ = torch.minimum(hi.amin(dim=-1), tmax)
+    return tmax_ > tmin

@@ -16,6 +16,7 @@ from tracer_tpu_torch.engine.state import EngineState
 from tracer_tpu_torch.models import camera as cam_mod
 from tracer_tpu_torch.models import lights as lights_mod
 from tracer_tpu_torch.models import scene as scene_mod
+from tracer_tpu_torch.ops import bvh as bvh_mod
 from tracer_tpu_torch.ops import intersect
 
 
@@ -26,14 +27,19 @@ def _t(x, device, dtype=torch.float32):
 def scene_from_numpy(sc, device) -> scene_mod.Scene:
     """A tracer_tpu Scene with numpy leaves -> Scene on `device`."""
     acc = sc.accel
-    if not hasattr(acc, "coeffs"):
-        raise NotImplementedError(
-            "only the dense accel is ported; the LBVH accel is not ported "
-            "yet (ROADMAP.md, Queue 1)")
-    accel = intersect.DenseTris(
-        coeffs=_t(acc.coeffs, device), tris=_t(acc.tris, device),
-        perm=_t(acc.perm, device, torch.int32),
-        chunk_bounds=_t(acc.chunk_bounds, device))
+    if hasattr(acc, "coeffs"):
+        accel = intersect.DenseTris(
+            coeffs=_t(acc.coeffs, device), tris=_t(acc.tris, device),
+            perm=_t(acc.perm, device, torch.int32),
+            chunk_bounds=_t(acc.chunk_bounds, device))
+    else:
+        accel = bvh_mod.LBVH(
+            node_min=_t(acc.node_min, device),
+            node_max=_t(acc.node_max, device),
+            left=_t(acc.left, device, torch.int32),
+            right=_t(acc.right, device, torch.int32),
+            parent=_t(acc.parent, device, torch.int32),
+            tris=_t(acc.tris, device), perm=_t(acc.perm, device, torch.int32))
     lt = sc.lights
     lights = lights_mod.Lights(
         kind=_t(lt.kind, device, torch.int32), tri=_t(lt.tri, device),

@@ -30,3 +30,11 @@ def write_png(path: str, img) -> None:
            + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(png)
+
+
+def argb_to_rgb(argb) -> np.ndarray:
+    """(h, w) uint32 ARGB framebuffer (what render() returns) -> (h, w, 3)
+    uint8."""
+    a = np.asarray(argb, dtype=np.uint32)
+    return np.stack([(a >> 16) & 0xFF, (a >> 8) & 0xFF, a & 0xFF],
+                    axis=-1).astype(np.uint8)

@@ -358,23 +358,26 @@ def stream_pairs(size: int, device, levels=(4, 5, 6), states=None) -> dict:
     return out
 
 
-def bounce_queries(integrator, s, with_points: bool = False) -> list:
-    """Every closest-hit query of one 1-spp frame of state s, as the path
-    hands it to the kernel wrapper: [(coeffs, phi, tmax, chunk_bounds,
-    kwargs)], one per bounce iteration."""
+def pool_queries(integrator, s, spp: int, with_points: bool = False) -> tuple:
+    """Every closest-hit and any-hit query of one spp-sample pool render
+    of state s (render_pooled), as the path hands it to the kernel
+    wrappers: (closest, any), each [(coeffs, phi, tmax, chunk_bounds,
+    kwargs)] with one entry per pool iteration: P lanes of fresh
+    primaries among bounce rays, and their 2P shadow lanes."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
     w, h = s.sub_dims
-    calls = []
-    with tap(ik, "closest_hit", calls):
-        integrator.render_frames(s.seed, s.nonce + 1, s.scene, s.cam,
-                                 s.ambience, w, h, s.transmitter_kind, 1,
+    closest, anyq = [], []
+    with tap(ik, "closest_hit", closest), tap(ik, "any_hit", anyq):
+        integrator.render_pooled(s.seed, s.nonce + 1, s.scene, s.cam,
+                                 s.ambience, w, h, s.transmitter_kind, spp,
                                  s.render_mode, with_points=with_points)
-    return [(*args, kw) for args, kw, _ in calls]
+    return ([(*args, kw) for args, kw, _ in closest],
+            [(*args, kw) for args, kw, _ in anyq])
 
 
 def bounce_times(queries, partition: bool = False, calls: int = 20,
                  rounds: int = 5) -> list:
-    """Per bounce iteration of bounce_queries: the live share of the
+    """Per query of pool_queries: the live share of the
     lanes (tmax > 0), the closest-hit kernel's launch alone on them
     (kernel_ms) and, with `partition` (a one-chunk scene, whose lanes the
     path does not sort), the wrapper call on the lanes as they are
