@@ -135,7 +135,31 @@ any failure exits non-zero:
               ms and ms per query (utils/profiling.PhaseTimer)
  10. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
               card, with either accel, resumes the next step bit for bit
- 11. result   a JSON line of the kernels, then the last line
+ 11. parallel parallel/render.py on PARALLEL_RANKS gloo ranks sharing the
+              card (parallel/local.run_sharded spawns them after the
+              parent built the kernels): render_pooled_sharded of the
+              512x512 Cornell box at 16 spp over (2, 2), 3 step_sharded
+              frames with the accumulation on over (4, 1), and the
+              640x480 100-spp capture through sample_points_sharded over
+              (2, 2), each held to the single-process call on the same
+              card (tile-only bit for bit, else within rtol 1e-5 with the
+              differing pixels printed; sample-sharded within rtol 1e-5;
+              points: returns and positions equal, intensity within rtol
+              1e-6), each rank's K1/K3 launches > 0 and no plain
+              intersect version on any rank, each sharded wall beside the
+              single call's; then one NCCL group of world size 1 that
+              reduces a tensor on the card and renders through a (1, 1)
+              mesh, bit for bit the single render
+ 12. viewer   frontends/interactive.py headless through its CLI at
+              800x600 for 32 frames: frames per second, its last frame
+              equal to that of 32 step + render calls of the API
+ 13. native   native/objloader.cpp built with g++ (utils/native.py; its
+              build time), an OBJ + MTL written from
+              subdivide(cornell_like, 5) read back natively and by the
+              Python loader (equal to each other and to the arrays
+              written), and the sharded capture's points written as PCD
+              natively and by utils/pcd.py, byte for byte equal
+ 14. result   a JSON line of the kernels, then the last line
               {"ok": true, "device": {...}}
 
 Tolerances (f32 sums in another order, FMA contraction in the kernel):
@@ -220,6 +244,9 @@ RECIP_SIZES = (1 << 20, 1 << 26)   # K5: the probe's n, and past the L2
 # the reference's demo-save capture (frontends/save_demo.py defaults)
 LIDAR_W, LIDAR_H, LIDAR_SPP = 640, 480, 100
 LIDAR_CHECK_SPP = 8   # of them, where render_frames runs beside the pool
+PARALLEL_RANKS = 4    # gloo ranks of the parallel phase, all on the one card
+VIEWER_W, VIEWER_H, VIEWER_FRAMES = 800, 600, 32   # the viewer's defaults
+NATIVE_LEVELS = 5     # subdivide(cornell_like, 5): the native phase's OBJ
 
 
 def log(phase, msg):
@@ -1799,6 +1826,278 @@ def phase_checkpoint(T, scene_arrays, device):
             raise AssertionError("a loaded checkpoint did not resume the step")
 
 
+# ---------------------------------------------------------------------------
+# multi-device rendering, the viewer, the native host library
+
+def held_to(phase, label, got, want, exact):
+    """A sharded result against the single-process one: bit for bit when
+    exact (if the card shows otherwise, within rtol 1e-5 with the
+    differing pixels printed), else within rtol 1e-5."""
+    import torch
+    differ = torch.nonzero((got != want).flatten(0, 1).any(dim=-1))[:, 0]
+    close = torch.isclose(got, want, rtol=1e-5, atol=0.0).all(dim=-1)
+    log(phase, f"{label}: {'bit for bit' if exact else 'rtol 1e-5'} "
+        f"against the single process; pixels differing in a bit "
+        f"{differ.numel()} of {close.numel()}, within rtol 1e-5 "
+        f"{int(close.sum())}")
+    if exact and differ.numel():
+        w = got.shape[1]
+        for p in differ[:8].tolist():
+            log(phase, f"{label}: pixel (row {p // w}, col {p % w}) "
+                f"sharded {got[p // w, p % w].tolist()} single "
+                f"{want[p // w, p % w].tolist()}")
+    if not bool(close.all()):
+        raise AssertionError(f"{label}: the sharded result is not the "
+                             f"single process's")
+
+
+def points_held_to(phase, label, got, want):
+    """Sharded points against sample_points_n's: returns and positions
+    equal, intensity within rtol 1e-6."""
+    import torch
+
+    def has(p):
+        return ~((p[..., :3] == -1).all(-1) & (p[..., 3] == 0))
+    same_has = torch.equal(has(got), has(want))
+    pos_equal = (got[..., :3] == want[..., :3]).all(-1)
+    inten = torch.isclose(got[..., 3], want[..., 3], rtol=1e-6, atol=0.0)
+    log(phase, f"{label}: returns {int(has(got).sum())} (single "
+        f"{int(has(want).sum())}), positions equal on {int(pos_equal.sum())}"
+        f" of {pos_equal.numel()} pixels, intensity within rtol 1e-6 on "
+        f"{int(inten.sum())}")
+    if not (same_has and bool(pos_equal.all()) and bool(inten.all())):
+        raise AssertionError(f"{label}: the sharded capture is not the "
+                             f"single process's")
+
+
+def rank_counts(phase, label, r):
+    """Each rank's K1/K3 launches (> 0) and plain intersect calls (0)."""
+    launches, plain = r["launches"], r["plain_calls"]
+    log(phase, f"{label}: launches per rank closest_hit "
+        f"{launches['closest_hit']}, any_hit {launches['any_hit']}; plain "
+        f"calls per rank {plain}")
+    if (min(launches["closest_hit"]) <= 0 or min(launches["any_hit"]) <= 0
+            or max(max(v) for v in plain.values()) != 0):
+        raise AssertionError(f"{label}: a rank did not run K1 and K3, or "
+                             f"ran a plain version")
+
+
+def timed(fn):
+    """(fn(), seconds) on the host clock, closed by a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_parallel(T, integrator, scene_arrays, card, device):
+    """parallel/render.py on PARALLEL_RANKS gloo ranks sharing the card
+    (parallel/local.run_sharded; the kernels were built by the parent
+    before the spawn): the 512x512 16-spp Cornell render over (2, 2), 3
+    steps over (4, 1) with the accumulation on, and the reference capture
+    over (2, 2), each held to the single-process call on the same card,
+    its wall beside the single call's; then NCCL at world size 1."""
+    import torch
+    from tracer_tpu_torch.engine import keys
+    from tracer_tpu_torch.parallel import local
+    tris, tm, mats = scene_arrays
+    s = T.init(0, SIZE, SIZE, 0, tris, tm, mats, cam_origin=CAM_ORIGIN,
+               device=device)
+    sm = T.key(keys.KEYDOWN, keys.SDLK_SPACE, s)
+    sl = T.init(0, LIDAR_H, LIDAR_W, 2, tris, tm, mats,
+                cam_origin=CAM_ORIGIN, device=device)
+    torch.cuda.empty_cache()
+    n = PARALLEL_RANKS
+    calls = [("render_pooled_sharded", (2, 2), s, 2),   # warm-up
+             ("render_pooled_sharded", (2, 2), s, 16),
+             ("step_sharded", (4, 1), sm, 3),
+             ("sample_points_sharded", (2, 2), sl, LIDAR_SPP)]
+    t0 = time.perf_counter()
+    _, render, steps, capture = local.run_sharded(n, calls, device="cuda:0",
+                                                  threads=2)
+    log("parallel", f"{n} gloo ranks on {torch.cuda.get_device_name(0)}: "
+        f"spawn, group, state loads and the calls "
+        f"{time.perf_counter() - t0:.1f} s")
+    ranks = f"{n} gloo ranks sharing one card, on {card}"
+
+    def single_render():
+        return integrator.render_pooled(
+            s.seed, s.nonce, s.scene, s.cam, s.ambience, SIZE, SIZE,
+            s.transmitter_kind, 16, s.render_mode)["img"]
+    single_render()   # warm-up
+    want, secs = timed(single_render)
+    log("parallel", f"render_pooled_sharded {SIZE}x{SIZE} 16 spp over (2, 2):"
+        f" {render['seconds']:.3f} s, single process {secs:.3f} s; {ranks}")
+    held_to("parallel", "render (2, 2)", render["out"], want.cpu(), False)
+    rank_counts("parallel", "render (2, 2)", render)
+
+    def single_steps():
+        x = sm
+        for _ in range(3):
+            x = T.step(x)
+        return x
+    want, secs = timed(single_steps)
+    log("parallel", f"3 x step_sharded {SIZE}x{SIZE} over (4, 1): "
+        f"{steps['seconds']:.3f} s, 3 x step {secs:.3f} s; n_frames "
+        f"{steps['n_frames']} / {want.n_frames}, nonce {steps['nonce']} / "
+        f"{want.nonce}; {ranks}")
+    if (steps["n_frames"], steps["nonce"]) != (want.n_frames, want.nonce):
+        raise AssertionError("step_sharded's counters are not step's")
+    held_to("parallel", "3 steps (4, 1)", steps["out"], want.img.cpu(), True)
+    rank_counts("parallel", "3 steps (4, 1)", steps)
+
+    (_, pts), secs = timed(lambda: T.sample_points_n(sl, LIDAR_SPP))
+    log("parallel", f"sample_points_sharded {LIDAR_W}x{LIDAR_H} x {LIDAR_SPP}"
+        f" spp over (2, 2): {capture['seconds']:.3f} s, sample_points_n "
+        f"{secs:.3f} s; {ranks}")
+    points_held_to("parallel", "capture (2, 2)", capture["out"], pts.cpu())
+    rank_counts("parallel", "capture (2, 2)", capture)
+    del s, sm, sl
+    torch.cuda.empty_cache()
+    phase_nccl(T, integrator, scene_arrays, device)
+    return capture["out"]
+
+
+def phase_nccl(T, integrator, scene_arrays, device):
+    """One NCCL group of world size 1 on the card: it initialises, reduces
+    a tensor on the device, and a (1, 1) mesh renders the single image."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from tracer_tpu_torch.parallel import render as par
+    s = T.init(0, 64, 64, 0, *scene_arrays, cam_origin=CAM_ORIGIN,
+               device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            x = torch.arange(4, dtype=torch.float32, device=device)
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            mesh = par.make_mesh(1, 1)
+            got = par.render_pooled_sharded(s, mesh, 4)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    want = integrator.render_pooled(
+        s.seed, s.nonce, s.scene, s.cam, s.ambience, 64, 64,
+        s.transmitter_kind, 4, s.render_mode)["img"]
+    log("parallel", f"backend {backend}, world size 1: init and a first "
+        f"all_reduce {init_s:.2f} s, reduced on {x.device}: {x.tolist()}; "
+        f"(1, 1) mesh 64x64 4 spp equals the single render bit for bit: "
+        f"{torch.equal(got, want)}")
+    if (backend != "nccl" or not x.is_cuda or x.tolist() != [0, 1, 2, 3]
+            or not torch.equal(got, want)):
+        raise AssertionError("the NCCL group did not reduce on the card or "
+                             "render the single image")
+
+
+def phase_viewer(T, ik, device, card):
+    """The viewer headless at the interactive cell's shape (800x600, 32
+    frames) through its CLI, frames per second, K1/K3 launched and no
+    plain version, its image held to the API loop's from the same
+    state."""
+    import numpy as np
+    import torch
+    from tracer_tpu_torch.frontends import interactive
+    from tracer_tpu_torch.utils import image
+    torch.cuda.synchronize()
+    ik.reset_counts()
+    state, rgb = interactive.main(["--headless", "--frames",
+                                   str(VIEWER_FRAMES)])
+    launches, plain = dict(ik.launches), dict(ik.plain_calls)
+    log("viewer", f"launches={launches} plain_calls={plain}")
+    if (launches["closest_hit"] <= 0 or launches["any_hit"] <= 0
+            or max(plain.values()) != 0):
+        raise AssertionError("the viewer did not run through K1 and K3")
+    (tris, tm, mats), _ = load_cornell()
+    s = T.init(0, VIEWER_H, VIEWER_W, 0, tris, tm, mats,
+               cam_origin=CAM_ORIGIN, device=device)
+    t0 = time.perf_counter()
+    for _ in range(VIEWER_FRAMES):
+        s = T.step(s)
+    want = image.argb_to_rgb(T.render(s).cpu().numpy())
+    secs = time.perf_counter() - t0
+    same = bool(np.array_equal(rgb, want))
+    log("viewer", f"the API loop (step, render, argb_to_rgb; no blit): "
+        f"{VIEWER_FRAMES / secs:.2f} frames per second; the viewer's last "
+        f"frame equals its image: {same}; on {card}")
+    if not same or (state.nonce, state.n_frames) != (s.nonce, s.n_frames):
+        raise AssertionError("the viewer's loop is not the API loop")
+
+
+def write_obj(path, tris, tri_mats, mats):
+    """An OBJ + MTL of a scene's arrays (every value in %.9g, which an
+    f32 reads back exactly; the spectra as their 12 Sp/Em knots)."""
+    base = os.path.splitext(path)[0]
+    with open(base + ".mtl", "w") as f:
+        for i, m in enumerate(mats):
+            f.write(f"newmtl m{i}\nSp {' '.join(f'{v:.9g}' for v in m[:12])}"
+                    f"\nPr {m[12]:.9g}\nPm {m[13]:.9g}\nNi {m[14]:.9g}\n"
+                    f"Tf {m[15]:.9g}\nEm "
+                    f"{' '.join(f'{v:.9g}' for v in m[16:])}\n")
+    with open(path, "w") as f:
+        f.write(f"mtllib {os.path.basename(base)}.mtl\n")
+        for t in tris.reshape(-1, 3):
+            f.write(f"v {t[0]:.9g} {t[1]:.9g} {t[2]:.9g}\n")
+        for i, m in enumerate(tri_mats):
+            f.write(f"usemtl m{m}\nf {3 * i + 1} {3 * i + 2} {3 * i + 3}\n")
+
+
+def phase_native(points):
+    """The native host library: its g++ build, an OBJ written from
+    subdivide(cornell_like, NATIVE_LEVELS) read back natively and by the
+    Python loader (equal to each other and to the arrays written), and
+    the capture's points written natively and by utils/pcd.py, byte for
+    byte."""
+    import tempfile
+    import numpy as np
+    from tracer_tpu_torch.utils import native, objloader, pcd
+    lib = native.load_library()
+    info = native.build_info()
+    log("native", f"g++ build of tracer_tpu_torch/native/objloader.cpp: "
+        f"{info['seconds']:.2f} s into {info['path']}")
+    if lib is None:
+        raise AssertionError(f"the native library did not build: "
+                             f"{info['error']}")
+    arrays = cornell_sub(NATIVE_LEVELS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.obj")
+        write_obj(path, *arrays)
+        t0 = time.perf_counter()
+        got = objloader.load_obj(path, backend="native")
+        t1 = time.perf_counter()
+        py = objloader.load_obj(path, backend="python")
+        t2 = time.perf_counter()
+        same = all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for x in (py, arrays) for a, b in zip(got, x))
+        log("native", f"OBJ of {arrays[0].shape[0]} triangles: native "
+            f"{1e3 * (t1 - t0):.1f} ms, Python {1e3 * (t2 - t1):.1f} ms; "
+            f"equal to each other and to the arrays written: {same}")
+        if not same:
+            raise AssertionError("the native loader disagrees")
+        a, b = os.path.join(tmp, "n.pcd"), os.path.join(tmp, "p.pcd")
+        pts = points.numpy()
+        t0 = time.perf_counter()
+        native.write_pcd(a, pts)
+        t1 = time.perf_counter()
+        pcd.write_pcd(b, pts)
+        t2 = time.perf_counter()
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            na, nb = fa.read(), fb.read()
+        log("native", f"the sharded capture's {pts.shape[0] * pts.shape[1]}"
+            f" points as PCD: native {1e3 * (t1 - t0):.1f} ms, Python "
+            f"{1e3 * (t2 - t1):.1f} ms, {len(na)} bytes, byte for byte "
+            f"equal: {na == nb}")
+        if na != nb:
+            raise AssertionError("the native PCD differs from utils/pcd's")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1884,6 +2183,12 @@ def main():
     clock("lbvh")
     phase_checkpoint(T, scene_arrays, device)
     clock("checkpoint")
+    points = phase_parallel(T, integrator, scene_arrays, card, device)
+    clock("parallel")
+    phase_viewer(T, ik, device, card)
+    clock("viewer")
+    phase_native(points)
+    clock("native")
     cornell["closest_hit"].update(
         {f"capture_{f}": v for f, v in capture_k1.items()})
     for k, t in capture_pool.items():

@@ -97,10 +97,11 @@ def test_not_ported_paths_raise():
     """Sensor configs 1 and 2, distance mode, sample_points_n and the LBVH
     accel are ported (tests/test_torch_lidar.py, tests/test_torch_bvh.py):
     a JAX state built with the LBVH is carried across. An unknown
-    transmitter or render mode is refused. Still unported, and so absent
-    from the package: parallel/, the viewer, utils/aot.py, utils/native.py
-    (ROADMAP.md, Queue 1), and profiling.compiled_stats, which reads XLA's
-    cost analysis and has no twin."""
+    transmitter or render mode is refused. parallel/ (render and the local
+    launcher), the viewer and utils/native.py are ported; still unported,
+    and so absent from the package: utils/aot.py (ROADMAP.md, Queue 1),
+    and profiling.compiled_stats, which reads XLA's cost analysis and has
+    no twin."""
     import importlib.util
     from tracer_tpu_torch.ops import bvh as tbvh
     from tracer_tpu_torch.utils import profiling
@@ -118,9 +119,10 @@ def test_not_ported_paths_raise():
                   cam_origin=(0.0, 0.8, 1.8), accel="lbvh")
     tl = convert.state_from_numpy(jax.tree.map(np.asarray, lbvh), "cpu")
     assert isinstance(tl.scene.accel, tbvh.LBVH)
-    for name in ("parallel", "frontends.interactive", "utils.aot",
-                 "utils.native"):
-        assert importlib.util.find_spec("tracer_tpu_torch." + name) is None
+    for name in ("parallel", "parallel.render", "parallel.local",
+                 "frontends.interactive", "utils.native"):
+        assert importlib.util.find_spec("tracer_tpu_torch." + name) is not None
+    assert importlib.util.find_spec("tracer_tpu_torch.utils.aot") is None
     assert not hasattr(profiling, "compiled_stats")
 
 

@@ -15,13 +15,19 @@ The layout mirrors tracer_tpu:
   ops/        vector math, counter-based RNG, spectra, geometry,
               materials, dense intersector, the kernels' wrappers and
               their build (cuda_lib), the LBVH (radix_tree, bvh)
-  utils/      OBJ loader, procedural test scenes, PCD and PNG writers,
+  parallel/   multi-device rendering on torch.distributed (a tile x
+              sample mesh of ranks), and a launcher of ranks on one host
+  utils/      OBJ loader (native or Python), the native host library's
+              bindings, procedural test scenes, PCD and PNG writers,
               conversion of a JAX engine state into this package's state,
               checkpoint, profiling, the kernels' test cases and timing,
               the pool's timing, the reciprocal probe
   frontends/  the LiDAR capture (python -m
-              tracer_tpu_torch.frontends.save_demo)
+              tracer_tpu_torch.frontends.save_demo) and the interactive
+              viewer (python -m tracer_tpu_torch.frontends.interactive)
   csrc/       CUDA C++ kernel sources, built with nvcc at first use
+  native/     the C++ host library (OBJ/MTL loader, PCD writer), built
+              with g++ at first use
 
 The entry points run on the CUDA card unless the caller names another
 device.

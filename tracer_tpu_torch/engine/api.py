@@ -75,8 +75,14 @@ def step(s: EngineState) -> EngineState:
     """Advance one progressive frame: fresh, or merged into the image
     when the mode is on and a frame exists (an EMA in colour mode; in
     distance mode a pixel keeps its first return)."""
+    return merge_frame(s, _render(s, s.nonce, 1)["img"])
+
+
+def merge_frame(s: EngineState, img_new: torch.Tensor) -> EngineState:
+    """The state after the 1-spp frame img_new, by step's rule: the
+    frame merged into the image or replacing it, n_frames and the nonce
+    advanced. parallel.render.step_sharded shares it."""
     s = _fit_img(s)
-    img_new = _render(s, s.nonce, 1)["img"]
     if s.mode and s.n_frames > 0:
         if s.render_mode == sensors.RENDER_DISTANCE:
             img = integrator.accumulate_distance(s.img, img_new)

@@ -5,7 +5,9 @@ reference's demo-save, demo-save/src/main.rs:12-32).
         [-W 640] [-H 480] [-s 100] [-c 2] [--out dump.pcd] [--png out.png]
 
 Defaults are the reference's: 640x480, sensor config 2 (LiDAR), 100
-samples per pixel, camera at (0, 0.8, 1.8), ASCII PCD output. The scene
+samples per pixel, camera at (0, 0.8, 1.8), ASCII PCD output, written by
+the native host library (utils/native.py) when it builds, else by
+utils/pcd.py, and the writer that ran is printed. The scene
 is --obj, else CornellBox-Original.obj under $TRACER_ASSETS when it is
 there, else the procedural Cornell box (utils/testscenes.cornell_like).
 --png also writes a --png-frames progressive image. It runs on the CUDA
@@ -55,8 +57,8 @@ def main(argv=None):
 
     import torch
     import tracer_tpu_torch as T
+    from tracer_tpu_torch.utils import native, pcd
     from tracer_tpu_torch.utils.image import write_png
-    from tracer_tpu_torch.utils.pcd import write_pcd
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -72,8 +74,13 @@ def main(argv=None):
     print(f"captured {points.shape[1]}x{points.shape[0]} points "
           f"@ {args.spp} spp in {time.perf_counter() - t0:.1f}s "
           f"({(points[..., 3] > 0).mean() * 100:.1f}% returns) on {device}")
-    write_pcd(args.out, points)
-    print(f"wrote {args.out}")
+    if native.available():
+        native.write_pcd(args.out, points)
+        writer = "native"
+    else:
+        pcd.write_pcd(args.out, points)
+        writer = "python"
+    print(f"wrote {args.out} ({writer} PCD writer)")
 
     if args.png:
         img = T.sample_n_frames(state, args.png_frames).cpu().numpy()

@@ -1,6 +1,6 @@
-"""OBJ/MTL asset loader, host side and numpy only (the Python loader of
-tracer_tpu/utils/objloader.py; the JAX package's optional native C++
-loader is not part of the port).
+"""OBJ/MTL asset loader, host side (port of tracer_tpu/utils/objloader.py):
+the native C++ loader (utils/native.py) when it builds, else this
+module's Python loader, numpy only.
 
 Produces the buffers engine/api.py:init consumes:
     tris     f32 (T, 3, 3)   vertex positions per triangle
@@ -22,6 +22,8 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from tracer_tpu_torch.utils import native
 
 RED_WAVELEN = 610.0
 GREEN_WAVELEN = 550.0
@@ -94,9 +96,30 @@ def _mat_row(m: _Mtl) -> np.ndarray:
     return np.asarray(row, np.float32)
 
 
-def load_obj(path: str):
+def load_obj(path: str, backend: str = "auto"):
     """Load an OBJ with its MTL. Returns (tris (T,3,3) f32,
-    tri_mats (T,) u32, mats (M,28) f32); polygons are fan-triangulated."""
+    tri_mats (T,) u32, mats (M,28) f32); polygons are fan-triangulated.
+
+    backend: "auto" prefers the native loader (utils/native.py), as the
+    JAX twin does; where the native library cannot be built, or refuses
+    the file, the Python loader reads it (and raises ValueError naming
+    what is wrong with it). "native" raises RuntimeError instead, and
+    "python" is this module's loader alone."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend != "python":
+        if backend == "native":
+            return native.load_obj(path)
+        if native.available():
+            try:
+                return native.load_obj(path)
+            except RuntimeError:
+                pass   # the Python loader says what is wrong
+    return _load_obj_py(path)
+
+
+def _load_obj_py(path: str):
+    """The Python loader."""
     vertices: list[list[float]] = []
     tris: list[list[list[float]]] = []
     tri_mats: list[int] = []
