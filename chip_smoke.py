@@ -53,8 +53,9 @@ any failure exits non-zero:
               of the lanes and the closest-hit kernel's device ms; for the
               one-chunk box also the wrapper call on the lanes as they
               come and with the dead lanes partitioned first (sort,
-              gather, kernel, two scatters); then K1 and K3 on every
-              query of that render as the pool hands it to them
+              gather, kernel, two scatters); then K1 and K3 on the
+              queries of pool iterations 0, 1, every 6th and the last of
+              that render as the pool hands them
               (2,097,152 lanes of fresh primaries among bounce rays, dead
               lanes at tmax 0, and their 4,194,304 shadow lanes) against
               the plain version on every lane and against the exact
@@ -63,7 +64,10 @@ any failure exits non-zero:
               version and the bound of the same inputs: the ms, plain_ms
               and bound_ms of the kernels line
   6. bigscene the big-scene path on subdivisions of the Cornell box
-              (the same surfaces and materials): all four kernels on
+              (the same surfaces and materials), run as: the render and
+              its breakdown (timed), the checks that time nothing (beside
+              phase 14's exports, with phase 10), the timings; all four
+              kernels on
               subdivide(cornell_like, 5) (22,528 triangles, 88 chunks)
               and on cornell-sub6 = subdivide(cornell_like, 6) (90,112
               triangles, 352 chunks, streamed), each resident and
@@ -75,8 +79,9 @@ any failure exits non-zero:
               render_frames at 16 spp beside it, held to it as in phase
               4), whose image must pass the Cornell checks and lie
               within 3% of the Cornell image's mean; the breakdown of one
-              16-spp cornell-sub6 pool render, with K2 and K4 on every
-              query of it (524,288 sorted lanes, 1,048,576 shadow lanes)
+              16-spp cornell-sub6 pool render, with K2 and K4 on the
+              queries of the iterations phase 5 picks (524,288 sorted
+              lanes, 1,048,576 shadow lanes)
               against the plain version on a strided 8,192 of the lanes
               and against the exact kernel on every lane, and both timed
               on one iteration's queries as in phase 5; its chunk
@@ -120,7 +125,8 @@ any failure exits non-zero:
               against the CPU; 3 distance-mode steps; the flash (conf 1)
               against conf 0 on the box with its emission killed; the
               breakdown of one 16-spp pool capture, with K1 and K3 on
-              every query of it (2,097,152 and 4,194,304 lanes) against
+              the queries of the iterations phase 5 picks (2,097,152 and
+              4,194,304 lanes) against
               the plain version and the exact kernel as in phase 5
   9. lbvh     accel="lbvh" (plain torch) built on the card for the Cornell
               box and subdivide(cornell_like, 3): closest hit on the
@@ -135,6 +141,7 @@ any failure exits non-zero:
               ms and ms per query (utils/profiling.PhaseTimer)
  10. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
               card, with either accel, resumes the next step bit for bit
+              (run after phase 6's checks, beside phase 14's exports)
  11. parallel parallel/render.py on PARALLEL_RANKS gloo ranks sharing the
               card (parallel/local.run_sharded spawns them after the
               parent built the kernels): render_pooled_sharded of the
@@ -151,7 +158,7 @@ any failure exits non-zero:
               reduces a tensor on the card and renders through a (1, 1)
               mesh, bit for bit the single render
  12. viewer   frontends/interactive.py headless through its CLI at
-              800x600 for 32 frames: frames per second, its last frame
+              800x600 for 16 frames: frames per second, its last frame
               equal to that of 32 step + render calls of the API
  13. native   native/objloader.cpp built with g++ (utils/native.py; its
               build time), an OBJ + MTL written from
@@ -159,7 +166,24 @@ any failure exits non-zero:
               Python loader (equal to each other and to the arrays
               written), and the sharded capture's points written as PCD
               natively and by utils/pcd.py, byte for byte equal
- 14. result   a JSON line of the kernels, then the last line
+ 14. aot      the exported step (utils/aot.py) of four states, each with
+              the accumulation on and one frame taken: the 512x512
+              Cornell box (K1/K3), cornell-sub6 at 512x512 (K2/K4), the
+              640x480 config-2 capture in distance mode (K1/K3) and a
+              128x128 LBVH box (no kernel); the four exported at once by
+              processes of their own at the lowest priority, started
+              before phase 6's checks and waited for after them and
+              phase 10, beside work that times nothing (seconds and bytes
+              of each), then
+              one fresh process that loads each state from a checkpoint
+              and its artifact (seconds) and steps it 3 times (each wall
+              closed by a synchronise), never importing
+              engine.integrator; its images, n_frames and nonce held bit
+              for bit to 3 api.step calls from the same state in this
+              process (their walls printed beside), the kernels each
+              state needs launched from the exported step and no plain
+              version called
+ 15. result   a JSON line of the kernels, then the last line
               {"ok": true, "device": {...}}
 
 Tolerances (f32 sums in another order, FMA contraction in the kernel):
@@ -207,6 +231,10 @@ PLAIN_SLICE = 1 << 19
 POOL_SUBSET = 8_192
 POOL_TIMED = 1      # the pool iteration whose queries are timed: the first
                     # with fresh primaries among bounce lanes
+# The pool iterations whose queries are held to the plain version and the
+# exact kernel: 0 (camera rays), 1 (fresh primaries among bounce rays),
+# every POOL_CHECK_STRIDE-th and the last (the drain's few live lanes).
+POOL_CHECK_STRIDE = 6
 MEAN_REL = 0.03     # cornell-sub6 image mean against the Cornell image's
 PROFILE_SPP = 16    # samples per pixel of a profiled pool render
 # subdivision levels of cornell_like: the resident multi-chunk scene, the
@@ -245,8 +273,12 @@ RECIP_SIZES = (1 << 20, 1 << 26)   # K5: the probe's n, and past the L2
 LIDAR_W, LIDAR_H, LIDAR_SPP = 640, 480, 100
 LIDAR_CHECK_SPP = 8   # of them, where render_frames runs beside the pool
 PARALLEL_RANKS = 4    # gloo ranks of the parallel phase, all on the one card
-VIEWER_W, VIEWER_H, VIEWER_FRAMES = 800, 600, 32   # the viewer's defaults
+# the viewer's window at its defaults, and the frames it runs headless
+VIEWER_W, VIEWER_H, VIEWER_FRAMES = 800, 600, 16
 NATIVE_LEVELS = 5     # subdivide(cornell_like, 5): the native phase's OBJ
+AOT_STEPS = 3         # steps of each exported and eager run of phase aot
+AOT_LBVH_SIZE = 128   # the LBVH state of phase aot
+AOT_TIMEOUT = 600     # seconds for a child process of phase aot
 
 
 def log(phase, msg):
@@ -447,19 +479,30 @@ def plain_in_slices(ik, query, co, phi, tm, cb):
     return tuple(torch.cat(x) for x in zip(*refs)), band
 
 
+def checked_iterations(n):
+    """The pool iterations of a render of n whose queries are checked."""
+    return sorted(({0, 1, n - 1} | set(range(0, n, POOL_CHECK_STRIDE)))
+                  & set(range(n)))
+
+
 def check_pool_queries(ik, phase, label, closest, anyq, errs):
-    """Every closest- and any-hit query of one pool render, as the path
-    hands it to the kernel wrappers (kernel_timing.pool_queries: P lanes
-    of fresh primaries among bounce rays, dead lanes at tmax 0, and their
-    2P shadow lanes), against the plain version (on every lane, or on a
+    """The closest- and any-hit queries of the pool iterations
+    checked_iterations picks in one pool render, as the path hands them
+    to the kernel wrappers (kernel_timing.pool_queries: P lanes of fresh
+    primaries among bounce rays, dead lanes at tmax 0, and their 2P
+    shadow lanes), against the plain version (on every lane, or on a
     strided POOL_SUBSET of them where lanes x triangles passes
     PLAIN_PAIRS) and against the exact kernel on every lane."""
     import torch
     if not closest or len(closest) != len(anyq):
         raise AssertionError(f"{label}: the pool render made no kernel "
                              f"queries")
+    picked = checked_iterations(len(closest))
+    log(phase, f"{label}: the queries of pool iterations {picked} of "
+        f"{len(closest)} are checked")
     for query, queries in (("closest", closest), ("any", anyq)):
-        for i, (co, phi, tm, cb, kw) in enumerate(queries):
+        for i in picked:
+            co, phi, tm, cb, kw = queries[i]
             n = phi.shape[1]
             tm = torch.as_tensor(tm, dtype=torch.float32,
                                  device=phi.device).expand(n).contiguous()
@@ -882,13 +925,16 @@ def busy_us(spans):
 
 
 def phase_breakdown(integrator, ik, s, card, names, errs, label,
-                    phase="breakdown", one_chunk=False, with_points=False):
+                    phase="breakdown", one_chunk=False, with_points=False,
+                    before_checks=None):
     """Where the time of one PROFILE_SPP-spp pool render goes, for the
     kernels `names` (closest first) that the pool launches once per
     iteration; one_chunk: also time the dead-lane partition per
-    iteration. Then every query of that render against the plain version
-    and the exact kernel (check_pool_queries), and the two kernels timed
-    on one of them (pool_query_times), whose times it returns.
+    iteration. Then the two kernels timed on the queries of one iteration
+    of that render (pool_query_times), whose times it returns, and the
+    queries of several iterations against the plain version and the
+    exact kernel (check_pool_queries), which time nothing: before_checks
+    is called between the two.
     torch.profiler (utils/profiling.device_trace) traces the
     card; the device is busy over the union of its kernel and copy
     intervals, each taken once, and the share is of the host-clock wall
@@ -969,8 +1015,11 @@ def phase_breakdown(integrator, ik, s, card, names, errs, label,
             f"{sum(r['partition_ms'] for r in rows):.4f} ms over "
             f"{len(rows)} iterations (median of {TIME_ROUNDS} rounds of "
             f"{TIME_CALLS} back-to-back calls each, on {card})")
+    times = pool_query_times(ik, phase, label, queries, shadow, card)
+    if before_checks is not None:
+        before_checks()
     check_pool_queries(ik, phase, label, queries, shadow, errs)
-    return pool_query_times(ik, phase, label, queries, shadow, card)
+    return times
 
 
 def phase_reference(T, scene_arrays, device):
@@ -1040,15 +1089,12 @@ def check_all_variants(ik, intersect, label, dense, phi, tmax, query, errs,
     return ref
 
 
-def phase_big_kernels(ik, intersect, device, errs):
-    """(1) all four kernels on subdivide(cornell_like, 5) and on
-    cornell-sub6 at the main path's 512x512 shapes. Returns the states."""
+def phase_big_kernels(ik, intersect, states, errs):
+    """(1) all four kernels on the states of subdivide(cornell_like, 5)
+    and of cornell-sub6 at the main path's 512x512 shapes."""
     from tracer_tpu_torch.ops import shapes
     from tracer_tpu_torch.utils import kernel_cases as kc
-    from tracer_tpu_torch.utils import kernel_timing
-    states = {}
-    for levels in (RESIDENT_LEVELS, SLICE_LEVELS):
-        s = kernel_timing.sub_state(levels, SIZE, device)
+    for levels, s in states.items():
         dense = s.scene.accel
         n_chunks = dense.chunk_bounds.shape[0]
         t_pad = dense.coeffs.shape[1]
@@ -1067,8 +1113,6 @@ def phase_big_kernels(ik, intersect, device, errs):
                                "closest", errs)
         check_all_variants(ik, intersect, f"sub{levels} shadow 2N", dense,
                            intersect.ray_features_t(so, sd), st, "any", errs)
-        states[levels] = s
-    return states
 
 
 def phase_big_check(ik, intersect, device, errs):
@@ -1315,14 +1359,16 @@ def phase_big_timing(ik, s, card):
 
 
 def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
-                   cornell_mean):
+                   cornell_mean, before_checks=None, after_checks=None):
+    """The big-scene path: the cornell-sub6 render (timed) and its
+    breakdown (timed), then the checks that time nothing (the breakdown's
+    queries, the four kernels on two subdivisions, the hit-for-hit check),
+    then the kernels timed at the per-frame shapes. before_checks and
+    after_checks are called around the checks."""
     import torch
-    states = phase_big_kernels(ik, intersect, device, errs)
-    del states[RESIDENT_LEVELS]
-    torch.cuda.empty_cache()
-    phase_big_check(ik, intersect, device, errs)
-    torch.cuda.empty_cache()
-    clock("bigscene kernels")
+    from tracer_tpu_torch.utils import kernel_timing
+    states = {levels: kernel_timing.sub_state(levels, SIZE, device)
+              for levels in (RESIDENT_LEVELS, SLICE_LEVELS)}
 
     # (3) the slice's render: cornell-sub6 through the entry points
     s = states[SLICE_LEVELS]
@@ -1349,9 +1395,17 @@ def phase_bigscene(T, integrator, ik, intersect, card, device, errs,
     # (4) breakdown and schedule statistics of one 16-spp pool render
     pool_times = phase_breakdown(
         integrator, ik, s, card, ("closest_hit_streamed", "any_hit_streamed"),
-        errs, "cornell-sub6", phase="bigscene")
+        errs, "cornell-sub6", phase="bigscene", before_checks=before_checks)
     schedule_stats(ik, intersect, s)
     clock("bigscene breakdown")
+    phase_big_kernels(ik, intersect, states, errs)
+    del states[RESIDENT_LEVELS]
+    torch.cuda.empty_cache()
+    phase_big_check(ik, intersect, device, errs)
+    torch.cuda.empty_cache()
+    clock("bigscene kernels")
+    if after_checks is not None:
+        after_checks()
     # (5) timing of the four kernels at cornell-sub6's per-frame shapes
     return launches, phase_big_timing(ik, s, card), pool_times
 
@@ -2098,6 +2152,228 @@ def phase_native(points):
             raise AssertionError("the native PCD differs from utils/pcd's")
 
 
+# ---------------------------------------------------------------------------
+# the exported step
+
+# A fresh process that imports the port's modules it names; its last
+# line of output is a JSON object.
+_CHILD_HEAD = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+device = torch.device({device!r})
+sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
+"""
+
+# Export one state's step: load its checkpoint on the card, export_step,
+# write the artifact.
+_EXPORT_CHILD = _CHILD_HEAD + """
+from tracer_tpu_torch.utils import aot, checkpoint
+state = checkpoint.load({ck!r}, device=device)
+t0 = time.perf_counter()
+blob = aot.export_step(state)
+secs = time.perf_counter() - t0
+with open({art!r}, "wb") as f:
+    f.write(blob)
+print(json.dumps({{"export_s": secs, "bytes": len(blob)}}))
+"""
+
+# Step every state from its checkpoint and artifact, AOT_STEPS times, in
+# one process that never builds a scene or imports the integrator.
+_STEP_CHILD = _CHILD_HEAD + """
+from tracer_tpu_torch.ops import intersect_kernel as ik
+from tracer_tpu_torch.utils import aot, checkpoint
+out = {{}}
+for name, ck, art, res in {cases!r}:
+    t0 = time.perf_counter()
+    state = checkpoint.load(ck, device=device)
+    t1 = time.perf_counter()
+    step = aot.load_step(art)
+    t2 = time.perf_counter()
+    ik.reset_counts()
+    walls, imgs, counters = [], [], []
+    for _ in range({steps}):
+        sync()
+        t = time.perf_counter()
+        state = step(state)
+        sync()
+        walls.append(time.perf_counter() - t)
+        imgs.append(state.img.cpu().numpy())
+        counters.append([state.n_frames, state.nonce])
+    np.savez(res, imgs=np.stack(imgs), counters=np.asarray(counters))
+    out[name] = {{"checkpoint_s": t1 - t0, "load_s": t2 - t1,
+                  "walls": walls, "launches": dict(ik.launches),
+                  "plain_calls": dict(ik.plain_calls),
+                  "device": str(state.img.device)}}
+out["modules"] = sorted(m for m in sys.modules
+                        if m.startswith("tracer_tpu_torch.engine"))
+out["integrator"] = "tracer_tpu_torch.engine.integrator" in sys.modules
+out["jax"] = "jax" in sys.modules or "tracer_tpu" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def run_child(code, timeout):
+    """A fresh python process on `code`: (the JSON of its last line,
+    seconds). Its output is printed when it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+        raise AssertionError(f"a child process failed ({proc.returncode})")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+
+def aot_states(T, scene_arrays, device):
+    """The states of phase aot, each with the accumulation on and one
+    frame taken: name -> (state, the kernels its step must launch)."""
+    from dataclasses import replace
+    sub6 = cornell_sub(SLICE_LEVELS)
+    cases = {
+        "cornell-512": (SIZE, SIZE, 0, scene_arrays, "auto",
+                        ("closest_hit", "any_hit")),
+        "cornell-sub6-512": (SIZE, SIZE, 0, sub6, "auto",
+                             ("closest_hit_streamed", "any_hit_streamed")),
+        "capture-640x480": (LIDAR_W, LIDAR_H, 2, scene_arrays, "auto",
+                            ("closest_hit", "any_hit")),
+        "lbvh-128": (AOT_LBVH_SIZE, AOT_LBVH_SIZE, 0, scene_arrays, "lbvh",
+                     ()),
+    }
+    out = {}
+    for name, (w, h, conf, arrays, accel, kernels) in cases.items():
+        s = T.init(0, h, w, conf, *arrays, cam_origin=CAM_ORIGIN,
+                   accel=accel, device=device)
+        out[name] = (T.step(replace(s, mode=True)), kernels)
+    return out
+
+
+class AotExports:
+    """Phase aot's first half, started while checks that time nothing
+    run: the states, their checkpoints in a temporary directory, and one
+    process per state that exports its step (utils/aot.export_step) at
+    the lowest priority. wait() collects them; close() (also at exit)
+    stops any still running and removes the directory."""
+
+    def __init__(self, T, scene_arrays, device):
+        import atexit
+        import tempfile
+        from tracer_tpu_torch.utils import checkpoint
+        self.device = device
+        self.states = aot_states(T, scene_arrays, device)
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+        self.procs = {}
+        atexit.register(self.close)
+        self.paths = {name: tuple(os.path.join(self.tmp, f"{name}.{ext}")
+                                  for ext in ("npz", "pt2", "res.npz"))
+                      for name in self.states}
+        for name, (s, _) in self.states.items():
+            checkpoint.save(self.paths[name][0], s)
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.t0 = time.perf_counter()
+        for name in self.states:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-c", _EXPORT_CHILD.format(
+                    root=root, device=str(device), ck=self.paths[name][0],
+                    art=self.paths[name][1])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                preexec_fn=lambda: os.nice(19))
+        log("aot", f"4 export processes started at "
+            f"{self.t0 - _T0:.1f} s, beside checks that time nothing")
+        self.exports = None
+
+    def wait(self):
+        """name -> {"export_s", "bytes"}, once every export has ended."""
+        if self.exports is None:
+            self.exports = {}
+            for name, proc in self.procs.items():
+                out, err = proc.communicate(timeout=AOT_TIMEOUT)
+                if proc.returncode != 0:
+                    print(out[-4000:], err[-8000:], file=sys.stderr)
+                    raise AssertionError(f"exporting the step of {name} "
+                                         f"failed")
+                self.exports[name] = json.loads(out.strip().splitlines()[-1])
+            secs = time.perf_counter() - self.t0
+            log("aot", f"the 4 exports ended {secs:.1f} s after they "
+                f"started")
+        return self.exports
+
+    def close(self):
+        import shutil
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def phase_aot(T, aot, card):
+    """The exported step (utils/aot.py) on the four states of aot (an
+    AotExports): AOT_STEPS api.step calls from each state, timed, in this
+    process; the exports collected; then one fresh process that loads
+    each state from its checkpoint and its artifact and steps it
+    AOT_STEPS times, never importing the integrator. Its images and
+    counters are held bit for bit to the api.step calls; each state's
+    kernels launched from the exported step, no plain version."""
+    import numpy as np
+    root = os.path.dirname(os.path.abspath(__file__))
+    eager = {}
+    for name, (s, _) in aot.states.items():
+        walls, imgs, counters = [], [], []
+        for _ in range(AOT_STEPS):
+            s, secs = timed(lambda s=s: T.step(s))
+            walls.append(secs)
+            imgs.append(s.img.cpu().numpy())
+            counters.append([s.n_frames, s.nonce])
+        eager[name] = (walls, np.stack(imgs), np.asarray(counters))
+    exports = aot.wait()
+    clock("aot eager")
+    paths = aot.paths
+    cases = [(name, *paths[name]) for name in aot.states]
+    res, secs = run_child(_STEP_CHILD.format(
+        root=root, device=str(aot.device), cases=cases, steps=AOT_STEPS),
+        AOT_TIMEOUT)
+    log("aot", f"the stepping process: {secs:.1f} s from its start to "
+        f"its end; engine modules it imported: {res['modules']}; "
+        f"engine.integrator imported: {res['integrator']}; jax or "
+        f"tracer_tpu imported: {res['jax']}")
+    if res["integrator"] or res["jax"]:
+        raise AssertionError("the stepping process imported the "
+                             "integrator or the JAX package")
+    for name, (s, kernels) in aot.states.items():
+        got = np.load(paths[name][2])
+        walls, imgs, counters = eager[name]
+        r, e = res[name], exports[name]
+        same = (np.array_equal(got["imgs"], imgs)
+                and np.array_equal(got["counters"], counters))
+        launched = {k: v for k, v in r["launches"].items() if v}
+        log("aot", f"{name}: export {e['export_s']:.2f} s, "
+            f"{e['bytes']:,} bytes; checkpoint load "
+            f"{r['checkpoint_s']:.2f} s, artifact load "
+            f"{r['load_s']:.2f} s; exported step walls "
+            f"{[round(w, 4) for w in r['walls']]} s against eager "
+            f"api.step {[round(w, 4) for w in walls]} s; launches "
+            f"{launched}, plain calls {sum(r['plain_calls'].values())}; "
+            f"n_frames, nonce {got['counters'].tolist()}; images and "
+            f"counters equal bit for bit: {same}; on {r['device']}, "
+            f"{card}")
+        if not same:
+            raise AssertionError(f"{name}: the exported step differs "
+                                 f"from api.step")
+        if not np.isfinite(imgs).all() or imgs[-1].max() <= 0:
+            raise AssertionError(f"{name}: the image is not finite "
+                                 f"or black")
+        if (any(r["launches"][k] <= 0 for k in kernels)
+                or sum(r["plain_calls"].values())
+                or set(launched) - set(kernels)):
+            raise AssertionError(f"{name}: the exported step did not "
+                                 f"run on the kernels {kernels} alone")
+    aot.close()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2164,8 +2440,19 @@ def main():
     clock("breakdown")
     del s
     torch.cuda.empty_cache()
+    # phase aot's exports run beside the checks that time nothing: the
+    # big-scene checks and the checkpoint phase
+    aot = []
+
+    def beside_exports():
+        phase_checkpoint(T, scene_arrays, device)
+        clock("checkpoint")
+        aot[0].wait()
+
     big_launches, times, big_pool = phase_bigscene(
-        T, integrator, ik, intersect, card, device, errs, cornell_mean)
+        T, integrator, ik, intersect, card, device, errs, cornell_mean,
+        before_checks=lambda: aot.append(AotExports(T, scene_arrays, device)),
+        after_checks=beside_exports)
     pool_times.update(big_pool)
     clock("bigscene")
     launches.update({k: big_launches[k] for k in
@@ -2181,14 +2468,14 @@ def main():
     torch.cuda.empty_cache()
     phase_lbvh(T, integrator, intersect, scene_arrays, card, device)
     clock("lbvh")
-    phase_checkpoint(T, scene_arrays, device)
-    clock("checkpoint")
     points = phase_parallel(T, integrator, scene_arrays, card, device)
     clock("parallel")
     phase_viewer(T, ik, device, card)
     clock("viewer")
     phase_native(points)
     clock("native")
+    phase_aot(T, aot[0], card)
+    clock("aot")
     cornell["closest_hit"].update(
         {f"capture_{f}": v for f, v in capture_k1.items()})
     for k, t in capture_pool.items():

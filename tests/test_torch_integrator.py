@@ -98,10 +98,10 @@ def test_not_ported_paths_raise():
     accel are ported (tests/test_torch_lidar.py, tests/test_torch_bvh.py):
     a JAX state built with the LBVH is carried across. An unknown
     transmitter or render mode is refused. parallel/ (render and the local
-    launcher), the viewer and utils/native.py are ported; still unported,
-    and so absent from the package: utils/aot.py (ROADMAP.md, Queue 1),
-    and profiling.compiled_stats, which reads XLA's cost analysis and has
-    no twin."""
+    launcher), the viewer, utils/native.py and utils/aot.py (the exported
+    step, tests/test_torch_aot.py) are ported; absent from the package:
+    profiling.compiled_stats, which reads XLA's cost analysis and has no
+    twin."""
     import importlib.util
     from tracer_tpu_torch.ops import bvh as tbvh
     from tracer_tpu_torch.utils import profiling
@@ -120,9 +120,8 @@ def test_not_ported_paths_raise():
     tl = convert.state_from_numpy(jax.tree.map(np.asarray, lbvh), "cpu")
     assert isinstance(tl.scene.accel, tbvh.LBVH)
     for name in ("parallel", "parallel.render", "parallel.local",
-                 "frontends.interactive", "utils.native"):
+                 "frontends.interactive", "utils.native", "utils.aot"):
         assert importlib.util.find_spec("tracer_tpu_torch." + name) is not None
-    assert importlib.util.find_spec("tracer_tpu_torch.utils.aot") is None
     assert not hasattr(profiling, "compiled_stats")
 
 

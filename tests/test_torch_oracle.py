@@ -42,3 +42,29 @@ def test_micro_energy_parity_with_numpy_oracle(oracle_mean, seed):
     for c in range(3):
         a, b = oracle_mean[..., c].mean(), mean_t[..., c].mean()
         assert abs(b - a) / max(a, 1e-6) < 0.15, (c, a, b)
+
+
+def test_prism_against_independent_reference():
+    """The port's sample_n_frames on the prism scene (refraction, the
+    ref_ix dispersion, caustics) at 32x32 and 256 spp against the
+    committed golden of the independent estimator, by verify/compare's
+    z statistics at the bounds of tests/test_ref_estimator.py: median |z|
+    at the null, and tails no heavier than the same-estimator control
+    probe's (x2 slack, 2e-3 floor). Holds the pool's iteration (refill,
+    the stores, the sample-order merge) to the reference's semantics."""
+    import os
+    from verify.compare import zstats
+    golden = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                                  "ref_numpy_prism32.npz"))
+    size, spp = int(golden["size"]), 256
+    mean, var, n_ref = golden["mean"], golden["var"], int(golden["spp"])
+    ctrl = zstats(mean, var, n_ref, golden["mean_ctrl"],
+                  int(golden["spp_ctrl"]))
+    tris, tm, mats = testscenes.prism_scene()
+    s = T.init(0, size, size, 0, tris, tm, mats,
+               cam_origin=tuple(golden["origin"]), device="cpu")
+    img = T.sample_n_frames(s, spp).numpy()
+    assert img.shape == mean.shape and np.isfinite(img).all()
+    test = zstats(mean, var, n_ref, img, spp)
+    assert 0.55 < test["median_abs"] < 0.85, (test, ctrl)
+    assert test["frac_gt5"] < max(2.0 * ctrl["frac_gt5"], 2e-3), (test, ctrl)

@@ -2,6 +2,7 @@
 
   init              build scene + accel + initial state on a device
   step              one progressive 1-spp frame
+  step_core         step on tensor counters (what utils/aot.py exports)
   render            upsample + pack an ARGB framebuffer
   step_render       step() then render()
   key               runtime UI state machine (host-side)
@@ -78,21 +79,44 @@ def step(s: EngineState) -> EngineState:
     return merge_frame(s, _render(s, s.nonce, 1)["img"])
 
 
+def _merged(s: EngineState, img_new, n_frames):
+    """img_new merged into s.img by the sensor's rule; n_frames is the
+    pre-increment count, a python int or a 0-d tensor."""
+    if s.render_mode == sensors.RENDER_DISTANCE:
+        return integrator.accumulate_distance(s.img, img_new)
+    return integrator.accumulate_color(s.img, img_new, n_frames)
+
+
 def merge_frame(s: EngineState, img_new: torch.Tensor) -> EngineState:
     """The state after the 1-spp frame img_new, by step's rule: the
     frame merged into the image or replacing it, n_frames and the nonce
     advanced. parallel.render.step_sharded shares it."""
     s = _fit_img(s)
     if s.mode and s.n_frames > 0:
-        if s.render_mode == sensors.RENDER_DISTANCE:
-            img = integrator.accumulate_distance(s.img, img_new)
-        else:
-            img = integrator.accumulate_color(s.img, img_new, s.n_frames)
+        img = _merged(s, img_new, s.n_frames)
         n_frames = (s.n_frames + 1) & prng.MASK
     else:
         img, n_frames = img_new, 1
     return replace(s, img=img, n_frames=n_frames,
                    nonce=(s.nonce + 1) & prng.MASK)
+
+
+def step_core(s: EngineState, seed, nonce, n_frames, mode):
+    """step on tensors, as the JAX package's _step_core
+    (tracer_tpu/engine/api.py:74-93): seed, nonce, n_frames (0-d int64
+    u32 words) and mode (0-d bool) in place of s's python counters,
+    whose values it ignores; s.img must have the shape of s.sub_dims.
+    Both merges are computed and one picked on the device. Returns (img,
+    n_frames, nonce) as tensors; it reads no host value, so
+    torch.export captures it (utils/aot.py)."""
+    w, h = s.sub_dims
+    img_new = integrator.render_pooled_tensors(
+        seed, nonce, s.scene, s.cam, s.ambience, w, h, s.transmitter_kind,
+        1, s.render_mode)["img"]
+    accum = mode & (n_frames > 0)
+    img = torch.where(accum, _merged(s, img_new, n_frames), img_new)
+    n_frames = torch.where(accum, (n_frames + 1) & prng.MASK, 1)
+    return img, n_frames, (nonce + 1) & prng.MASK
 
 
 def render(s: EngineState) -> torch.Tensor:

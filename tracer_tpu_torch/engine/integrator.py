@@ -40,6 +40,7 @@ from tracer_tpu_torch.models import scene as scene_mod
 from tracer_tpu_torch.ops import intersect
 from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.ops import linalg as la
+from tracer_tpu_torch.ops import loop
 from tracer_tpu_torch.ops import materials, shapes
 from tracer_tpu_torch.ops import rng as prng
 from tracer_tpu_torch.ops import spectrum as spec
@@ -98,8 +99,7 @@ def _bounce(state, scene: scene_mod.Scene, alive, first, o, d, wavelen,
     bounce 0): a python bool for all lanes, or (N,) bool. A lane that is
     not alive queries at tmax 0: it hits nothing and the kernel leaves it
     out of its walk; every use of its interaction is masked."""
-    far = torch.as_tensor(shapes.F32_HIGHEST, dtype=torch.float32,
-                          device=d.device)
+    far = torch.finfo(torch.float32).max   # shapes.F32_HIGHEST in f32
     inter = scene_mod.closest_interaction(
         scene, torch.where(alive, far, 0.0), o, d, wavelen)
     hit = alive & inter.ok
@@ -248,10 +248,14 @@ def visualize(samples: FrameSamples, render_mode: str, channel_colors,
 # ---------------------------------------------------------------------------
 # Frame accumulation (tracer_tpu/engine/integrator.py:1046-1058)
 
-def accumulate_color(acc, new, n_frames: int):
+def accumulate_color(acc, new, n_frames):
     """EMA merge with the pre-increment frame count, including the quirk
-    that the n_frames=1 merge discards the first frame."""
-    nf = float(n_frames)
+    that the n_frames=1 merge discards the first frame. n_frames is a
+    python int, whose weights are float64 quotients rounded once to f32,
+    or a 0-d tensor, whose weights are f32 quotients as the JAX package
+    computes them: the same f32 for every n_frames < 2^24."""
+    nf = (n_frames.to(torch.float32) if isinstance(n_frames, torch.Tensor)
+          else float(n_frames))
     return acc * ((nf - 1.0) / nf) + new * (1.0 / nf)
 
 
@@ -413,12 +417,13 @@ def _pool_size(n: int, spp: int, t_pad: int) -> int:
     return max(1, min(n * spp, cap))
 
 
-def _fresh_samples(seed: int, nonce: int, cam: cam_mod.Camera, w: int,
-                   full_h: int, row0: int, s, pix):
+def _fresh_samples(seed, nonce, cam: cam_mod.Camera, w: int, full_h: int,
+                   row0: int, s, pix):
     """The camera sample of work item (s, pix) on every lane: stream
     make_streams(seed, nonce + s, pixel id in the full frame), then the
     wavelength, the channel and the primary ray as sample_pixels draws
-    them. Returns (state, wavelen, channel, origin (3, P), dir (3, P))."""
+    them. seed and nonce are python ints or 0-d tensors. Returns (state,
+    wavelen, channel, origin (3, P), dir (3, P))."""
     jx = (pix % w).to(torch.float32)
     iy = float(full_h) - ((pix // w).to(torch.float32) + float(row0)) - 1.0
     state = prng.make_streams_per_lane(seed, prng.as_u32(nonce + s),
@@ -428,51 +433,76 @@ def _fresh_samples(seed: int, nonce: int, cam: cam_mod.Camera, w: int,
     return state, wavelen, channel, origin.expand(3, pix.shape[0]), d
 
 
+# The pool's carry between iterations, in order: the lane state, the
+# points' lane state with_points, then the result stores a render keeps
+# (_store_names).
+_LANES = ("it", "next_item", "active", "item", "state", "bounce", "o", "d",
+          "po", "pd", "wavelen", "chan", "cum_dist", "sample_rad",
+          "sample_min_d", "live")
+_POINT_LANES = ("sample_pos", "sample_int")
+
+
+def _store_names(color: bool, with_points: bool) -> tuple:
+    return ((("rad", "chan8") if color else ())
+            + (("mind",) if not color or with_points else ())
+            + (("pos", "int") if with_points else ()))
+
+
 def _pool_round(seed, nonce, scene, cam, ambience, w, h, transmitter_kind,
                 spp, row0, full_h, pool, color, with_points, spp_factor):
     """Run `spp` samples of every pixel through a pool of `pool` lanes.
     Returns (store, live): store maps a name to the (spp, n) results of
-    every (sample, pixel) slot ("pos": (3, spp, n)), live is the (iters,)
-    int64 count of active lanes per iteration, zeros past the end."""
+    every (sample, pixel) slot ("pos": (3, spp, n)), live is the
+    (max_iters,) int64 count of active lanes per iteration, zeros past
+    the end.
+
+    The iteration (body) works on a tuple of tensors of fixed shapes and
+    reads no host value; ops/loop.run drives it. Eagerly the exit flag
+    is read on the host only once every work item may have been handed
+    out (from full_iters on); traced (utils/aot.py) it is torch's
+    while_loop with cond (it < full_iters) | any lane active | items
+    left, under it < max_iters, which holds wherever the eager loop
+    does not read it: the two give the same bits."""
     dev = cam.origin.device
     n = w * h
     total = n * spp
-    f32 = {"dtype": torch.float32, "device": dev}
-    i64 = {"dtype": torch.int64, "device": dev}
     ambience = ambience.to(dev)
     flash = (direct_mod.transmitter(cam, transmitter_kind, None)
              if transmitter_kind == cam_mod.TRANSMITTER_FLASH else None)
+    full_iters = -(-total // pool)     # no exit before every item is out
+    max_iters = full_iters * PATH_LEN + PATH_LEN + 4
 
     # one slot per work item and a last one that takes the writes of the
     # lanes that did not end: no two lanes share a real slot, so the
     # stores hold the same values whatever order the lanes finish in
-    store = {}
-    if color:
-        store["rad"] = torch.zeros((total + 1,), **f32)
-        store["chan"] = torch.zeros((total + 1,), dtype=torch.int8,
-                                    device=dev)
-    if not color or with_points:
-        store["mind"] = torch.full((total + 1,), float("inf"), **f32)
-    if with_points:
-        store["pos"] = torch.zeros((3, total + 1), **f32)
-        store["int"] = torch.zeros((total + 1,), **f32)
+    stores = _store_names(color, with_points)
+    names = _LANES + (_POINT_LANES if with_points else ()) + stores
+    f32, i64, inf = torch.float32, torch.int64, float("inf")
+    lane, v3, slots = (pool,), (3, pool), (total + 1,)
+    first = {   # name: (shape, value, dtype) before the first iteration
+        "it": ((), 0, i64), "next_item": ((), 0, i64),
+        "active": (lane, False, torch.bool), "item": (lane, total, i64),
+        "state": (lane, 0, i64), "bounce": (lane, 0, torch.int32),
+        "o": (v3, 0.0, f32), "d": (v3, 0.0, f32), "po": (v3, 0.0, f32),
+        "pd": (v3, 0.0, f32), "wavelen": (lane, 0.0, f32),
+        "chan": (lane, 0, torch.int32), "cum_dist": (lane, 0.0, f32),
+        "sample_rad": (lane, 0.0, f32), "sample_min_d": (lane, inf, f32),
+        "live": ((max_iters,), 0, i64), "sample_pos": (v3, 0.0, f32),
+        "sample_int": (lane, 0.0, f32), "rad": (slots, 0.0, f32),
+        "chan8": (slots, 0, torch.int8), "mind": (slots, inf, f32),
+        "pos": ((3, total + 1), 0.0, f32), "int": (slots, 0.0, f32)}
+    init = tuple(torch.full(first[k][0], first[k][1], dtype=first[k][2],
+                            device=dev) for k in names)
 
-    next_item = torch.zeros((), **i64)
-    active = torch.zeros((pool,), dtype=torch.bool, device=dev)
-    item = torch.full((pool,), total, **i64)
-    state = torch.zeros((pool,), **i64)
-    bounce = torch.zeros((pool,), dtype=torch.int32, device=dev)
-    zero = torch.zeros((pool,), **f32)
-    o = d = po = pd = torch.zeros((3, pool), **f32)
-    wavelen = cum_dist = sample_rad = sample_int = zero
-    chan = torch.zeros((pool,), dtype=torch.int32, device=dev)
-    sample_min_d = torch.full((pool,), float("inf"), **f32)
-    sample_pos = torch.zeros((3, pool), **f32)
-    live = []
+    def cond(*carry):
+        c = dict(zip(names, carry))
+        return (c["it"] < max_iters) & (
+            (c["it"] < full_iters) | c["active"].any()
+            | (c["next_item"] < total))
 
-    full_iters = -(-total // pool)     # no exit before every item is out
-    max_iters = full_iters * PATH_LEN + PATH_LEN + 4
-    for it in range(1, max_iters + 1):
+    def body(*carry):
+        c = dict(zip(names, carry))
+        active, item, next_item = c["active"], c["item"], c["next_item"]
         # refill: the r-th idle lane takes item next_item + r; the counter
         # stays on the device. The camera sample is drawn for every lane
         # and selected: drawing it for the starting lanes alone needs
@@ -486,60 +516,64 @@ def _pool_round(seed, nonce, scene, cam, ambience, w, h, transmitter_kind,
         s_new = torch.div(item, n, rounding_mode="floor")
         fresh = _fresh_samples(seed, nonce, cam, w, full_h, row0, s_new,
                                item - s_new * n)
-        state = torch.where(start, fresh[0], state)
-        wavelen = torch.where(start, fresh[1], wavelen)
-        chan = torch.where(start, fresh[2], chan)
-        po = torch.where(start, fresh[3], po)
-        pd = torch.where(start, fresh[4], pd)
-        o = torch.where(start, po, o)
-        d = torch.where(start, pd, d)
-        bounce = torch.where(start, 0, bounce)
-        cum_dist = torch.where(start, 0.0, cum_dist)
-        sample_rad = torch.where(start, 0.0, sample_rad)
-        sample_min_d = torch.where(start, float("inf"), sample_min_d)
+        state = torch.where(start, fresh[0], c["state"])
+        wavelen = torch.where(start, fresh[1], c["wavelen"])
+        chan = torch.where(start, fresh[2], c["chan"])
+        po = torch.where(start, fresh[3], c["po"])
+        pd = torch.where(start, fresh[4], c["pd"])
+        o = torch.where(start, po, c["o"])
+        d = torch.where(start, pd, c["d"])
+        bounce = torch.where(start, 0, c["bounce"])
+        cum_dist = torch.where(start, 0.0, c["cum_dist"])
+        sample_rad = torch.where(start, 0.0, c["sample_rad"])
+        sample_min_d = torch.where(start, float("inf"), c["sample_min_d"])
         active = active | start
-        live.append(active.sum())
+        live = c["live"].index_copy(0, c["it"].reshape(1),
+                                    active.sum().reshape(1))
 
         # the transmitter fan hangs off the PRIMARY ray
         trans = (flash if flash is not None else
                  direct_mod.transmitter(cam, transmitter_kind, pd))
         b = _bounce(state, scene, active, bounce == 0, o, d, wavelen,
                     spec.lookup_table(wavelen, ambience), cum_dist, trans)
-        state, cum_dist = b.state, b.cum_dist
         sample_rad = sample_rad + b.radiance
         closer = ((b.radiance > 0) & (b.rec_dist > LIDAR_MIN_D)
                   & (b.rec_dist < LIDAR_MAX_D) & active
                   & (b.rec_dist < sample_min_d))
         sample_min_d = torch.where(closer, b.rec_dist, sample_min_d)
+        out = {"it": c["it"] + 1, "next_item": next_item, "item": item,
+               "state": b.state, "wavelen": wavelen, "chan": chan,
+               "po": po, "pd": pd, "cum_dist": b.cum_dist,
+               "sample_rad": sample_rad, "sample_min_d": sample_min_d,
+               "live": live}
         if with_points:
-            sample_pos = torch.where(closer, po + b.rec_dist * pd, sample_pos)
-            sample_int = torch.where(closer, b.radiance * spp_factor,
-                                     sample_int)
+            out["sample_pos"] = torch.where(closer, po + b.rec_dist * pd,
+                                            c["sample_pos"])
+            out["sample_int"] = torch.where(closer, b.radiance * spp_factor,
+                                            c["sample_int"])
         continues = b.scatters & (bounce + 1 < PATH_LEN)
         ended = active & ~continues
-        o = torch.where(continues, b.o, o)
-        d = torch.where(continues, b.d, d)
-        bounce = bounce + 1
-        active = continues
+        out["o"] = torch.where(continues, b.o, o)
+        out["d"] = torch.where(continues, b.d, d)
+        out["bounce"] = bounce + 1
+        out["active"] = continues
 
+        # written out of place: a traced step may not change its inputs
         slot = torch.where(ended, item, total)
-        if color:
-            store["rad"].index_copy_(0, slot, sample_rad)
-            store["chan"].index_copy_(0, slot, chan.to(torch.int8))
-        if "mind" in store:
-            store["mind"].index_copy_(0, slot, sample_min_d)
-        if with_points:
-            store["pos"].index_copy_(1, slot, sample_pos)
-            store["int"].index_copy_(0, slot, sample_int)
+        values = {"rad": sample_rad, "chan8": chan.to(torch.int8),
+                  "mind": sample_min_d, "pos": out.get("sample_pos"),
+                  "int": out.get("sample_int")}
+        for k in stores:
+            out[k] = c[k].index_copy(c[k].dim() - 1, slot, values[k])
+        return tuple(out[k] for k in names)
 
-        # the exit flag is read on the host only once every work item
-        # may have been handed out
-        if it >= full_iters and not bool(active.any()
-                                         | (next_item < total)):
-            break
-    out = {k: v[..., :total].reshape(*v.shape[:-1], spp, n)
-           for k, v in store.items()}
-    return out, torch.stack(live)
+    carry = dict(zip(names, loop.run(cond, body, init, max_iters,
+                                     check_from=full_iters)))
+    out = {k: carry[k][..., :total].reshape(*carry[k].shape[:-1], spp, n)
+           for k in stores}
+    if color:
+        out["chan"] = out.pop("chan8")
+    return out, carry["live"]
 
 
 def render_pooled(seed: int, nonce: int, scene: scene_mod.Scene,
@@ -562,7 +596,25 @@ def render_pooled(seed: int, nonce: int, scene: scene_mod.Scene,
     order in which lanes finish: the colour is the mean over samples, the
     distance that of the smallest s with a windowed return, the point
     the strict minimum in distance, a tie going to the larger s
-    (merge_returns). Neither refill nor accumulation reads the host."""
+    (merge_returns). Neither refill nor accumulation reads the host; the
+    counts are read once at the end (render_pooled_tensors leaves them
+    on the device)."""
+    out = render_pooled_tensors(seed, nonce, scene, cam, ambience, w, h,
+                                transmitter_kind, spp, render_mode, row0,
+                                full_h, with_points)
+    out["rays_traced"], out["iters"] = torch.stack(
+        [out["rays_traced"], out["iters"]]).tolist()
+    return out
+
+
+def render_pooled_tensors(seed, nonce, scene: scene_mod.Scene,
+                          cam: cam_mod.Camera, ambience, w: int, h: int,
+                          transmitter_kind: str, spp: int, render_mode: str,
+                          row0: int = 0, full_h: int | None = None,
+                          with_points: bool = False):
+    """render_pooled with "rays_traced" and "iters" as 0-d int64 tensors
+    on the device: it reads no host value, and seed and nonce may be 0-d
+    tensors, so torch.export captures it (engine/api.step_core)."""
     _check_modes(transmitter_kind, render_mode)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
@@ -613,8 +665,8 @@ def render_pooled(seed: int, nonce: int, scene: scene_mod.Scene,
     else:
         img = la.v3_to_array(_distance_rgb(first_d)).reshape(h, w, 3)
     live = torch.cat(lives)
-    counts = torch.stack([3 * live.sum(), (live > 0).sum()]).tolist()
-    out = {"img": img, "rays_traced": counts[0], "iters": counts[1]}
+    out = {"img": img, "rays_traced": 3 * live.sum(),
+           "iters": (live > 0).sum()}
     if with_points:
         out["points"] = best
     return out

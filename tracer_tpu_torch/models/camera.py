@@ -50,8 +50,7 @@ class Camera(NamedTuple):
 
 
 def _world_up(like):
-    return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                        device=like.device)
+    return la.v3_const(0.0, 1.0, 0.0, device=like.device)[:, 0]
 
 
 def cam_dir(cam: Camera):

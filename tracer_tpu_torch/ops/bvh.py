@@ -11,7 +11,8 @@ left through the root. Rays are (N, 3).
 Both loops end on a test of the whole batch, which is a host read on the
 card, so they test only every CHECK_EVERY-th step: a refit round past
 the fixed point changes nothing, and a lane that has left the tree is
-left alone by `live`.
+left alone by `live`. The walk's step runs under ops/loop.run, so a
+traced walk (a step captured by torch.export) is torch's while_loop.
 
 Plain torch on either device: the TPU package has no kernel here either.
 """
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tracer_tpu_torch.ops import morton, radix_tree, shapes
+from tracer_tpu_torch.ops import loop, morton, radix_tree, shapes
 
 CHECK_EVERY = 8
 
@@ -95,7 +96,14 @@ def build(tris) -> LBVH:
 def _traverse(bvh: LBVH, tmax0, origin, d, *, any_hit: bool,
               max_iters: int | None = None):
     """The shared stackless walk. Returns (closest_leaf (N,), tmax (N,))
-    for the closest hit, or (hit (N,) bool, _) for any hit."""
+    for the closest hit, or (hit (N,) bool, tmax) for any hit.
+
+    One step (body) over the carry (step, current, prev, closest[,
+    tmax]) runs under ops/loop.run: eagerly it tests for a live lane
+    every CHECK_EVERY-th step; traced it is torch's while_loop with cond
+    (step < max_iters) & any lane live. A step leaves a lane that has
+    left the tree as it is, so the two stop at different steps and give
+    the same result."""
     n_int = bvh.left.shape[0]
     n_leaves = bvh.tris.shape[0]
     n_rays = origin.shape[0]
@@ -106,21 +114,26 @@ def _traverse(bvh: LBVH, tmax0, origin, d, *, any_hit: bool,
     left, right, parent = bvh.left.long(), bvh.right.long(), bvh.parent.long()
 
     tmax = torch.as_tensor(tmax0, dtype=torch.float32,
-                           device=dev).expand(n_rays)
-    current = torch.zeros((n_rays,), dtype=torch.int64, device=dev)
-    prev = torch.full((n_rays,), -1, dtype=torch.int64, device=dev)
-    closest = (torch.zeros((n_rays,), dtype=torch.bool, device=dev)
-               if any_hit else torch.full((n_rays,), -1, dtype=torch.int64,
-                                          device=dev))
-    for it in range(max_iters):
+                           device=dev).expand(n_rays).clone()
+    init = (torch.zeros((), dtype=torch.int64, device=dev),
+            torch.zeros((n_rays,), dtype=torch.int64, device=dev),
+            torch.full((n_rays,), -1, dtype=torch.int64, device=dev),
+            torch.zeros((n_rays,), dtype=torch.bool, device=dev) if any_hit
+            else torch.full((n_rays,), -1, dtype=torch.int64, device=dev))
+
+    def cond(it, current, *_):
+        return (it < max_iters) & (current != -1).any()
+
+    def body(it, current, prev, closest, *tmax_carry):
+        # any hit never lowers tmax: it is not carried, since a loop's
+        # step may not hand back one of its inputs unchanged
+        t_max = tmax_carry[0] if tmax_carry else tmax
         live = current != -1
-        if it % CHECK_EVERY == 0 and not bool(live.any()):
-            break
         ci = torch.where(live, current, 0)
         node_left = left[ci]
         node_right = right[ci]
 
-        aabb_hit = shapes.hit_aabb(tmax, origin, d, bvh.node_min[ci],
+        aabb_hit = shapes.hit_aabb(t_max, origin, d, bvh.node_min[ci],
                                    bvh.node_max[ci])
         from_left = prev == node_left
         take_left = (~from_left) & (prev != node_right) & aabb_hit
@@ -130,14 +143,14 @@ def _traverse(bvh: LBVH, tmax0, origin, d, *, any_hit: bool,
         child_is_leaf = radix_tree.is_leaf(child, n_int) & has_child
         li = torch.clamp(radix_tree.leaf_index(child, n_int), 0, n_leaves - 1)
         tri = bvh.tris[torch.where(child_is_leaf, li, 0)]
-        ok, t, _, _ = shapes.hit_triangle(tmax, origin, d, tri)
-        leaf_hit = child_is_leaf & ok
+        ok, t, _, _ = shapes.hit_triangle(t_max, origin, d, tri)
+        leaf_hit = child_is_leaf & ok & live
 
         if any_hit:
             closest = closest | leaf_hit
         else:
             closest = torch.where(leaf_hit, li, closest)
-            tmax = torch.where(leaf_hit, t, tmax)
+            t_max = torch.where(leaf_hit, t, t_max)
 
         # next cursor: go down into an internal child, stay for a leaf
         # test, or go back up when no child is left
@@ -148,9 +161,13 @@ def _traverse(bvh: LBVH, tmax0, origin, d, *, any_hit: bool,
                                torch.where(has_child, prev, current))
         if any_hit:
             new_current = torch.where(closest, -1, new_current)
-        current = torch.where(live, new_current, current)
-        prev = torch.where(live, new_prev, prev)
-    return closest, tmax
+        out = (it + 1, torch.where(live, new_current, current),
+               torch.where(live, new_prev, prev), closest)
+        return out if any_hit else out + (t_max,)
+
+    carry = loop.run(cond, body, init if any_hit else init + (tmax,),
+                     max_iters, check_every=CHECK_EVERY)
+    return carry[3], (tmax if any_hit else carry[4])
 
 
 def closest_hit(bvh: LBVH, tmax, origin, d):

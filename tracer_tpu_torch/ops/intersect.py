@@ -185,7 +185,7 @@ def _quant_i(v, lo, hi, bits: int):
     _quant_i computes it, truncated toward zero and clipped. The clamp
     before the conversion gives the same cell for every finite v and
     keeps out-of-range values from the undefined float-to-int cast."""
-    scale = (torch.tensor(float(1 << bits), dtype=torch.float32)
+    scale = (torch.full_like(lo, float(1 << bits))
              / torch.clamp_min(hi - lo, 1e-30))
     q = (v - lo) * scale
     return torch.clamp(q, 0.0, float((1 << bits) - 1)).to(torch.int32)

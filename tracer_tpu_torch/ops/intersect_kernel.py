@@ -37,9 +37,14 @@ as the plain versions give it (t < tmax fails).
       t bit for bit and K3 and K4 to its hits; the path tracer never calls
       it.
 
-Dispatch: a tensor on the CPU goes to the plain version (closest_hit_ref,
-any_hit_ref, the chunked exact-f32 form of tracer_tpu/ops/intersect.py);
-a CUDA tensor launches the kernel or raises. The kernels are built with
+Dispatch: closest_hit and any_hit call the torch.library custom ops
+tracer_tpu_torch::closest_hit and tracer_tpu_torch::any_hit, whose CPU
+implementation is the plain version (closest_hit_ref, any_hit_ref, the
+chunked exact-f32 form of tracer_tpu/ops/intersect.py) and whose CUDA
+implementation launches the kernel or raises. Eager calls and a program
+captured by torch.export (utils/aot.py) run the same implementations;
+the ops' fake rules give torch.export the output shapes. A call with
+`stats` launches directly, outside the op. The kernels are built with
 nvcc at first use by ops/cuda_lib.py, with every other source under
 csrc/, and loaded with ctypes.
 """
@@ -362,7 +367,7 @@ def any_hit_ref(coeffs, phi, tmax, chunk_bounds):
 
 
 # ---------------------------------------------------------------------------
-# Dispatching wrappers
+# Kernel launches
 
 _ENTRIES = {"closest": "closest_hit_launch", "any": "any_hit_launch",
             "exact": "closest_hit_exact_launch"}
@@ -454,22 +459,80 @@ def _no_stats_on_cpu(stats) -> None:
                          "has none")
 
 
+# ---------------------------------------------------------------------------
+# The custom ops: tmax is always (N,); stream and max_sched as the
+# wrappers take them. The CPU implementation is the plain version, the
+# CUDA one the kernel (prepared_launch); no device falls back.
+
+_OPERANDS = ("(Tensor coeffs, Tensor phi, Tensor tmax, Tensor chunk_bounds, "
+             "bool? stream, int max_sched)")
+
+
+@torch.library.custom_op("tracer_tpu_torch::closest_hit", mutates_args=(),
+                         device_types="cpu",
+                         schema=_OPERANDS + " -> (Tensor, Tensor)")
+def _closest_op(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
+    _, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
+    plain_calls[variant_name("closest", streamed)] += 1
+    return _closest_plain(coeffs, phi, tmax, n_chunks, chunk_t)
+
+
+@_closest_op.register_kernel("cuda")
+def _closest_cuda(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
+    launch, _ = prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
+                                stream=stream, max_sched=max_sched)
+    return launch()
+
+
+@_closest_op.register_fake
+def _closest_fake(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
+    n = phi.shape[1]
+    return (phi.new_empty((n,)),
+            phi.new_empty((n,), dtype=torch.int32))
+
+
+@torch.library.custom_op("tracer_tpu_torch::any_hit", mutates_args=(),
+                         device_types="cpu", schema=_OPERANDS + " -> Tensor")
+def _any_op(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
+    _, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
+    plain_calls[variant_name("any", streamed)] += 1
+    return _any_plain(coeffs, phi, tmax, n_chunks, chunk_t)
+
+
+@_any_op.register_kernel("cuda")
+def _any_cuda(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
+    launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
+                                stream=stream, max_sched=max_sched)
+    return launch()[0]
+
+
+@_any_op.register_fake
+def _any_fake(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
+    return phi.new_empty((phi.shape[1],), dtype=torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# Dispatching wrappers
+
 def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
                 max_sched: int = MAX_SCHED, stats=None):
-    """Closest hit per ray: (best_t (N,) f32, best_i (N,) int32).
-    stream: None (streamed above STREAM_MIN_T_PAD), True or False;
-    max_sched: schedule entries per tile, 1..MAX_SCHED; stats: see
-    prepared_launch (a CPU call takes none)."""
-    tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
-    streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
-    if phi.device.type == "cpu":
-        _no_stats_on_cpu(stats)
-        plain_calls[variant_name("closest", streamed)] += 1
-        return _closest_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
-    launch, _ = prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
-                                stream=stream, max_sched=max_sched,
-                                stats=stats)
-    return launch()
+    """Closest hit per ray: (best_t (N,) f32, best_i (N,) int32), through
+    the op tracer_tpu_torch::closest_hit. stream: None (streamed above
+    STREAM_MIN_T_PAD), True or False; max_sched: schedule entries per
+    tile, 1..MAX_SCHED; stats: see prepared_launch (a CPU call takes
+    none)."""
+    tmax_v, _, _ = _check(coeffs, phi, tmax, chunk_bounds)
+    streamed_variant(coeffs.shape[1], stream, max_sched)
+    if stats is not None:   # outside the op: a launch with counters
+        if phi.device.type == "cpu":
+            _no_stats_on_cpu(stats)
+        launch, _ = prepared_launch("closest", coeffs, phi, tmax,
+                                    chunk_bounds, stream=stream,
+                                    max_sched=max_sched, stats=stats)
+        return launch()
+    return _closest_op(coeffs, phi, tmax_v, chunk_bounds, stream, max_sched)
 
 
 def closest_hit_exact(coeffs, phi, tmax, chunk_bounds, *,
@@ -490,15 +553,16 @@ def closest_hit_exact(coeffs, phi, tmax, chunk_bounds, *,
 
 def any_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
             max_sched: int = MAX_SCHED, stats=None):
-    """Whether any triangle is hit before tmax, per ray: (N,) bool.
-    stream, max_sched and stats as for closest_hit."""
-    tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
-    streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
-    if phi.device.type == "cpu":
-        _no_stats_on_cpu(stats)
-        plain_calls[variant_name("any", streamed)] += 1
-        return _any_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
-    launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
-                                stream=stream, max_sched=max_sched,
-                                stats=stats)
-    return launch()[0]
+    """Whether any triangle is hit before tmax, per ray: (N,) bool,
+    through the op tracer_tpu_torch::any_hit. stream, max_sched and stats
+    as for closest_hit."""
+    tmax_v, _, _ = _check(coeffs, phi, tmax, chunk_bounds)
+    streamed_variant(coeffs.shape[1], stream, max_sched)
+    if stats is not None:
+        if phi.device.type == "cpu":
+            _no_stats_on_cpu(stats)
+        launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
+                                    stream=stream, max_sched=max_sched,
+                                    stats=stats)
+        return launch()[0]
+    return _any_op(coeffs, phi, tmax_v, chunk_bounds, stream, max_sched)

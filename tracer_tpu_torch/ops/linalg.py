@@ -59,8 +59,11 @@ def v3(x, y, z):
 
 
 def v3_const(x, y, z, device=None):
-    """A constant vector as (3, 1), broadcasting against (3, N)."""
-    return torch.tensor([[x], [y], [z]], dtype=torch.float32, device=device)
+    """A constant vector as (3, 1), broadcasting against (3, N). Made by
+    fills, not from a host list: a program captured by torch.export holds
+    no tensor constant inside its loops."""
+    return torch.stack([torch.full((1,), float(c), dtype=torch.float32,
+                                   device=device) for c in (x, y, z)])
 
 
 def v3_dot(a, b):

@@ -55,13 +55,15 @@ def make_streams(seed: int, frame: int, lane_ids: torch.Tensor):
     return hash_u32(as_u32(lane_ids) ^ base)
 
 
-def make_streams_per_lane(seed: int, frames: torch.Tensor,
-                          lane_ids: torch.Tensor):
+def make_streams_per_lane(seed, frames: torch.Tensor, lane_ids: torch.Tensor):
     """make_streams with a frame index per lane: element k is
-    make_streams(seed, frames[k], lane_ids[k]) bit for bit. frames are
-    u32 words in int64 (a sum such as nonce + s must already be wrapped
-    to 32 bits, as_u32 does it)."""
-    base = hash_u32((int(seed) & MASK) ^ hash_u32(frames))
+    make_streams(seed, frames[k], lane_ids[k]) bit for bit. seed is a
+    python int or a 0-d integer tensor (what a program captured by
+    torch.export takes); frames are u32 words in int64 (a sum such as
+    nonce + s must already be wrapped to 32 bits, as_u32 does it)."""
+    word = (as_u32(seed) if isinstance(seed, torch.Tensor)
+            else int(seed) & MASK)
+    base = hash_u32(word ^ hash_u32(frames))
     return hash_u32(as_u32(lane_ids) ^ base)
 
 

@@ -83,6 +83,27 @@ def save(path: str, state: EngineState) -> None:
         **{k: v.detach().cpu().numpy() for k, v in leaves.items()})
 
 
+def assemble(static: dict, leaf) -> EngineState:
+    """The state whose fields static (the static fields, the counters
+    and "accel") gives and whose tensor under each dotted name of _leaves
+    is leaf(name)."""
+    def group(prefix, fields):
+        return {f: leaf(f"{prefix}{f}") for f in fields}
+
+    accel_cls, accel_fields = _ACCELS[static["accel"]]
+    lights = lights_mod.Lights(**group("scene.lights.", _LIGHT_FIELDS))
+    scene = scene_mod.Scene(**group("scene.", _SCENE_FIELDS), lights=lights,
+                            accel=accel_cls(**group("scene.accel.",
+                                                    accel_fields)))
+    cam = cam_mod.Camera(
+        **group("cam.", _CAMERA_FIELDS),
+        conf=cam_mod.CameraConfig(**group("cam.conf.",
+                                          cam_mod.CameraConfig._fields)))
+    return EngineState(**{k: static[k] for k in _STATIC_FIELDS + _COUNTERS},
+                       img=leaf("img"), ambience=leaf("ambience"), cam=cam,
+                       scene=scene)
+
+
 def load(path: str, template: EngineState | None = None, *,
          device="cuda") -> EngineState:
     """Restore a state saved by save(), on `device`. A template's static
@@ -95,25 +116,7 @@ def load(path: str, template: EngineState | None = None, *,
     if static["accel"] not in _ACCELS:
         raise ValueError(f"unknown accel {static['accel']!r} in checkpoint")
 
-    def group(prefix, fields):
-        return {f: torch.as_tensor(data[f"{prefix}{f}"], device=device)
-                for f in fields}
-
-    accel_cls, accel_fields = _ACCELS[static["accel"]]
-    lights = lights_mod.Lights(**group("scene.lights.", _LIGHT_FIELDS))
-    scene = scene_mod.Scene(**group("scene.", _SCENE_FIELDS), lights=lights,
-                            accel=accel_cls(**group("scene.accel.",
-                                                    accel_fields)))
-    cam = cam_mod.Camera(
-        **group("cam.", _CAMERA_FIELDS),
-        conf=cam_mod.CameraConfig(**group("cam.conf.",
-                                          cam_mod.CameraConfig._fields)))
-    state = EngineState(
-        **{k: static[k] for k in _STATIC_FIELDS + _COUNTERS},
-        img=torch.as_tensor(data["img"], device=device),
-        ambience=torch.as_tensor(data["ambience"], device=device),
-        cam=cam, scene=scene)
-
+    state = assemble(static, lambda k: torch.as_tensor(data[k], device=device))
     if template is not None:
         for k, v in _static_fields(template).items():
             if v != static[k]:
