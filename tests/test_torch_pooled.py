@@ -86,7 +86,8 @@ def test_pool_without_points(conf, monkeypatch):
     _fix_pool(monkeypatch, ODD_POOL)
     with_p = tint.render_pooled(*_args(s), 3, s.render_mode, with_points=True)
     without = tint.render_pooled(*_args(s), 3, s.render_mode)
-    assert sorted(without) == ["img", "iters", "rays_traced"]
+    assert sorted(without) == ["img", "iters", "lanes", "rays_traced"]
+    assert with_p["lanes"] == without["lanes"] == ODD_POOL
     assert torch.equal(with_p["img"], without["img"])
     assert with_p["rays_traced"] == without["rays_traced"]
     assert with_p["iters"] == without["iters"]

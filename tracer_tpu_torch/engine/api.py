@@ -11,7 +11,9 @@
   sample_points_n   LiDAR point-cloud capture
 
 Everything runs eagerly on the device the state was built on; `init`
-builds on the CUDA card unless the caller names another device.
+builds on the CUDA card unless the caller names another device. step,
+render, sample_n_frames and sample_points_n are the spans api.<name>
+(utils/profiling).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from tracer_tpu_torch.models import sensors
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import rng as prng
 from tracer_tpu_torch.ops import spectrum as spec
+from tracer_tpu_torch.utils import profiling
 
 
 def init(seed: int, h: int, w: int, cam_conf_id: int,
@@ -76,7 +79,8 @@ def step(s: EngineState) -> EngineState:
     """Advance one progressive frame: fresh, or merged into the image
     when the mode is on and a frame exists (an EMA in colour mode; in
     distance mode a pixel keeps its first return)."""
-    return merge_frame(s, _render(s, s.nonce, 1)["img"])
+    with profiling.span("api.step"):
+        return merge_frame(s, _render(s, s.nonce, 1)["img"])
 
 
 def _merged(s: EngineState, img_new, n_frames):
@@ -122,14 +126,15 @@ def step_core(s: EngineState, seed, nonce, n_frames, mode):
 def render(s: EngineState) -> torch.Tensor:
     """The image as an (h, w) uint32 ARGB framebuffer, nearest-neighbour
     upsampled from the subsampled image."""
-    ss = s.subsampling
-    ri = torch.arange(s.height, device=s.device) // ss
-    ci = torch.arange(s.width, device=s.device) // ss
-    up = s.img[ri][:, ci]
-    rgb = (torch.clamp(up, 0.0, 1.0) * 255.0).to(torch.int64)
-    argb = ((255 << 24) | (rgb[..., 0] << 16) | (rgb[..., 1] << 8)
-            | rgb[..., 2])
-    return argb.to(torch.uint32)
+    with profiling.span("api.render"):
+        ss = s.subsampling
+        ri = torch.arange(s.height, device=s.device) // ss
+        ci = torch.arange(s.width, device=s.device) // ss
+        up = s.img[ri][:, ci]
+        rgb = (torch.clamp(up, 0.0, 1.0) * 255.0).to(torch.int64)
+        argb = ((255 << 24) | (rgb[..., 0] << 16) | (rgb[..., 1] << 8)
+                | rgb[..., 2])
+        return argb.to(torch.uint32)
 
 
 def step_render(s: EngineState):
@@ -216,9 +221,10 @@ def sample_n_frames(s: EngineState, n: int) -> torch.Tensor:
     frames 2..n (the n_frames=1 merge drops frame 1), so this renders n-1
     samples from nonce+1, or 1 sample from nonce when n <= 1."""
     n = int(n)
-    if n <= 1:
-        return _render(s, s.nonce, 1)["img"]
-    return _render(s, (s.nonce + 1) & prng.MASK, n - 1)["img"]
+    with profiling.span("api.sample_n_frames"):
+        if n <= 1:
+            return _render(s, s.nonce, 1)["img"]
+        return _render(s, (s.nonce + 1) & prng.MASK, n - 1)["img"]
 
 
 def sample_points_n(s: EngineState, samples_per_pixel: int):
@@ -229,7 +235,8 @@ def sample_points_n(s: EngineState, samples_per_pixel: int):
     return is (-1, -1, -1, 0)."""
     spp = int(samples_per_pixel)
     w, h = s.sub_dims
-    pos, _, inten = _render(s, s.nonce, spp, with_points=True)["points"]
-    points = torch.cat([la.v3_to_array(pos), inten[:, None]], dim=-1)
+    with profiling.span("api.sample_points_n"):
+        pos, _, inten = _render(s, s.nonce, spp, with_points=True)["points"]
+        points = torch.cat([la.v3_to_array(pos), inten[:, None]], dim=-1)
     return (replace(s, nonce=(s.nonce + spp) & prng.MASK),
             points.reshape(h, w, 4))

@@ -44,6 +44,7 @@ from tracer_tpu_torch.ops import loop
 from tracer_tpu_torch.ops import materials, shapes
 from tracer_tpu_torch.ops import rng as prng
 from tracer_tpu_torch.ops import spectrum as spec
+from tracer_tpu_torch.utils import profiling
 
 PATH_LEN = 16  # max path length (integrator.fut:23)
 
@@ -98,36 +99,41 @@ def _bounce(state, scene: scene_mod.Scene, alive, first, o, d, wavelen,
     first says where a hit adds the surface's own emission (a lane's
     bounce 0): a python bool for all lanes, or (N,) bool. A lane that is
     not alive queries at tmax 0: it hits nothing and the kernel leaves it
-    out of its walk; every use of its interaction is masked."""
+    out of its walk; every use of its interaction is masked. Spans
+    bounce.closest, bounce.nee and bounce.bsdf (utils/profiling)."""
     far = torch.finfo(torch.float32).max   # shapes.F32_HIGHEST in f32
-    inter = scene_mod.closest_interaction(
-        scene, torch.where(alive, far, 0.0), o, d, wavelen)
-    hit = alive & inter.ok
-    miss = alive & ~inter.ok
+    with profiling.span("bounce.closest"):
+        inter = scene_mod.closest_interaction(
+            scene, torch.where(alive, far, 0.0), o, d, wavelen)
+        hit = alive & inter.ok
+        miss = alive & ~inter.ok
 
     wo = -d
-    state, direct = direct_mod.direct_radiance(
-        state, scene, wo, inter, wavelen, trans, mask=hit)
-    if first is True:
-        lit = direct + inter.emission_at_wl
-    elif first is False:
-        lit = direct
-    else:
-        lit = direct + torch.where(first, inter.emission_at_wl, 0.0)
-    cum_dist = torch.where(hit, cum_dist + inter.t, cum_dist)
-    rec_dist = torch.where(hit, cum_dist, float("inf"))
-    radiance = torch.where(hit, lit, torch.where(miss, ambient, 0.0))
+    with profiling.span("bounce.nee"):
+        state, direct = direct_mod.direct_radiance(
+            state, scene, wo, inter, wavelen, trans, mask=hit)
+        if first is True:
+            lit = direct + inter.emission_at_wl
+        elif first is False:
+            lit = direct
+        else:
+            lit = direct + torch.where(first, inter.emission_at_wl, 0.0)
+        cum_dist = torch.where(hit, cum_dist + inter.t, cum_dist)
+        rec_dist = torch.where(hit, cum_dist, float("inf"))
+        radiance = torch.where(hit, lit, torch.where(miss, ambient, 0.0))
 
-    state, wi, bsdf, pdf_val, pdf_kind = materials.sample_dir(
-        state, wo, inter.normal, inter.mat)
-    pdf = torch.where(pdf_kind == materials.PDF_DELTA, 1.0,
-                      torch.where(pdf_kind == materials.PDF_NONZERO,
-                                  pdf_val, 0.0))
-    cos_falloff = torch.abs(la.v3_dot(inter.normal, wi))
-    p_terminate = 1.0 - bsdf * cos_falloff / pdf
-    state, u = prng.next_unit(state)
-    scatters = hit & (pdf != 0) & ~(u < p_terminate)
-    o_new, d_new = shapes.mkray_adjust_acne_v(inter.pos, inter.normal, wi)
+    with profiling.span("bounce.bsdf"):
+        state, wi, bsdf, pdf_val, pdf_kind = materials.sample_dir(
+            state, wo, inter.normal, inter.mat)
+        pdf = torch.where(pdf_kind == materials.PDF_DELTA, 1.0,
+                          torch.where(pdf_kind == materials.PDF_NONZERO,
+                                      pdf_val, 0.0))
+        cos_falloff = torch.abs(la.v3_dot(inter.normal, wi))
+        p_terminate = 1.0 - bsdf * cos_falloff / pdf
+        state, u = prng.next_unit(state)
+        scatters = hit & (pdf != 0) & ~(u < p_terminate)
+        o_new, d_new = shapes.mkray_adjust_acne_v(inter.pos, inter.normal,
+                                                  wi)
     return Bounce(state, hit, radiance, cum_dist, rec_dist, scatters,
                   o_new, d_new)
 
@@ -503,72 +509,76 @@ def _pool_round(seed, nonce, scene, cam, ambience, w, h, transmitter_kind,
     def body(*carry):
         c = dict(zip(names, carry))
         active, item, next_item = c["active"], c["item"], c["next_item"]
-        # refill: the r-th idle lane takes item next_item + r; the counter
-        # stays on the device. The camera sample is drawn for every lane
-        # and selected: drawing it for the starting lanes alone needs
-        # their indices on the host
-        idle = ~active
-        rank = torch.cumsum(idle, 0)
-        cand = next_item + rank - 1
-        start = idle & (cand < total)
-        next_item = torch.clamp_max(next_item + rank[-1], total)
-        item = torch.where(start, cand, item)
-        s_new = torch.div(item, n, rounding_mode="floor")
-        fresh = _fresh_samples(seed, nonce, cam, w, full_h, row0, s_new,
-                               item - s_new * n)
-        state = torch.where(start, fresh[0], c["state"])
-        wavelen = torch.where(start, fresh[1], c["wavelen"])
-        chan = torch.where(start, fresh[2], c["chan"])
-        po = torch.where(start, fresh[3], c["po"])
-        pd = torch.where(start, fresh[4], c["pd"])
-        o = torch.where(start, po, c["o"])
-        d = torch.where(start, pd, c["d"])
-        bounce = torch.where(start, 0, c["bounce"])
-        cum_dist = torch.where(start, 0.0, c["cum_dist"])
-        sample_rad = torch.where(start, 0.0, c["sample_rad"])
-        sample_min_d = torch.where(start, float("inf"), c["sample_min_d"])
-        active = active | start
-        live = c["live"].index_copy(0, c["it"].reshape(1),
-                                    active.sum().reshape(1))
+        with profiling.span("bounce.refill"):
+            # refill: the r-th idle lane takes item next_item + r; the
+            # counter stays on the device. The camera sample is drawn for
+            # every lane and selected: drawing it for the starting lanes
+            # alone needs their indices on the host
+            idle = ~active
+            rank = torch.cumsum(idle, 0)
+            cand = next_item + rank - 1
+            start = idle & (cand < total)
+            next_item = torch.clamp_max(next_item + rank[-1], total)
+            item = torch.where(start, cand, item)
+            s_new = torch.div(item, n, rounding_mode="floor")
+            fresh = _fresh_samples(seed, nonce, cam, w, full_h, row0, s_new,
+                                   item - s_new * n)
+            state = torch.where(start, fresh[0], c["state"])
+            wavelen = torch.where(start, fresh[1], c["wavelen"])
+            chan = torch.where(start, fresh[2], c["chan"])
+            po = torch.where(start, fresh[3], c["po"])
+            pd = torch.where(start, fresh[4], c["pd"])
+            o = torch.where(start, po, c["o"])
+            d = torch.where(start, pd, c["d"])
+            bounce = torch.where(start, 0, c["bounce"])
+            cum_dist = torch.where(start, 0.0, c["cum_dist"])
+            sample_rad = torch.where(start, 0.0, c["sample_rad"])
+            sample_min_d = torch.where(start, float("inf"),
+                                       c["sample_min_d"])
+            active = active | start
+            live = c["live"].index_copy(0, c["it"].reshape(1),
+                                        active.sum().reshape(1))
 
-        # the transmitter fan hangs off the PRIMARY ray
-        trans = (flash if flash is not None else
-                 direct_mod.transmitter(cam, transmitter_kind, pd))
+            # the transmitter fan hangs off the PRIMARY ray
+            trans = (flash if flash is not None else
+                     direct_mod.transmitter(cam, transmitter_kind, pd))
         b = _bounce(state, scene, active, bounce == 0, o, d, wavelen,
                     spec.lookup_table(wavelen, ambience), cum_dist, trans)
-        sample_rad = sample_rad + b.radiance
-        closer = ((b.radiance > 0) & (b.rec_dist > LIDAR_MIN_D)
-                  & (b.rec_dist < LIDAR_MAX_D) & active
-                  & (b.rec_dist < sample_min_d))
-        sample_min_d = torch.where(closer, b.rec_dist, sample_min_d)
-        out = {"it": c["it"] + 1, "next_item": next_item, "item": item,
-               "state": b.state, "wavelen": wavelen, "chan": chan,
-               "po": po, "pd": pd, "cum_dist": b.cum_dist,
-               "sample_rad": sample_rad, "sample_min_d": sample_min_d,
-               "live": live}
-        if with_points:
-            out["sample_pos"] = torch.where(closer, po + b.rec_dist * pd,
-                                            c["sample_pos"])
-            out["sample_int"] = torch.where(closer, b.radiance * spp_factor,
-                                            c["sample_int"])
-        continues = b.scatters & (bounce + 1 < PATH_LEN)
-        ended = active & ~continues
-        out["o"] = torch.where(continues, b.o, o)
-        out["d"] = torch.where(continues, b.d, d)
-        out["bounce"] = bounce + 1
-        out["active"] = continues
+        with profiling.span("bounce.store"):
+            sample_rad = sample_rad + b.radiance
+            closer = ((b.radiance > 0) & (b.rec_dist > LIDAR_MIN_D)
+                      & (b.rec_dist < LIDAR_MAX_D) & active
+                      & (b.rec_dist < sample_min_d))
+            sample_min_d = torch.where(closer, b.rec_dist, sample_min_d)
+            out = {"it": c["it"] + 1, "next_item": next_item, "item": item,
+                   "state": b.state, "wavelen": wavelen, "chan": chan,
+                   "po": po, "pd": pd, "cum_dist": b.cum_dist,
+                   "sample_rad": sample_rad, "sample_min_d": sample_min_d,
+                   "live": live}
+            if with_points:
+                out["sample_pos"] = torch.where(
+                    closer, po + b.rec_dist * pd, c["sample_pos"])
+                out["sample_int"] = torch.where(
+                    closer, b.radiance * spp_factor, c["sample_int"])
+            continues = b.scatters & (bounce + 1 < PATH_LEN)
+            ended = active & ~continues
+            out["o"] = torch.where(continues, b.o, o)
+            out["d"] = torch.where(continues, b.d, d)
+            out["bounce"] = bounce + 1
+            out["active"] = continues
 
-        # written out of place: a traced step may not change its inputs
-        slot = torch.where(ended, item, total)
-        values = {"rad": sample_rad, "chan8": chan.to(torch.int8),
-                  "mind": sample_min_d, "pos": out.get("sample_pos"),
-                  "int": out.get("sample_int")}
-        for k in stores:
-            out[k] = c[k].index_copy(c[k].dim() - 1, slot, values[k])
+            # written out of place: a traced step may not change its
+            # inputs
+            slot = torch.where(ended, item, total)
+            values = {"rad": sample_rad, "chan8": chan.to(torch.int8),
+                      "mind": sample_min_d, "pos": out.get("sample_pos"),
+                      "int": out.get("sample_int")}
+            for k in stores:
+                out[k] = c[k].index_copy(c[k].dim() - 1, slot, values[k])
         return tuple(out[k] for k in names)
 
     carry = dict(zip(names, loop.run(cond, body, init, max_iters,
-                                     check_from=full_iters)))
+                                     name="pool", check_from=full_iters)))
     out = {k: carry[k][..., :total].reshape(*carry[k].shape[:-1], spp, n)
            for k in stores}
     if color:
@@ -598,12 +608,19 @@ def render_pooled(seed: int, nonce: int, scene: scene_mod.Scene,
     the strict minimum in distance, a tie going to the larger s
     (merge_returns). Neither refill nor accumulation reads the host; the
     counts are read once at the end (render_pooled_tensors leaves them
-    on the device)."""
+    on the device), host read pool.counts, and added to the counters
+    pool.live_lanes (active lanes summed over iterations, rays_traced /
+    3), pool.lane_iters (lanes x iters) and pool.iters (utils/profiling).
+    "lanes" is P."""
     out = render_pooled_tensors(seed, nonce, scene, cam, ambience, w, h,
                                 transmitter_kind, spp, render_mode, row0,
                                 full_h, with_points)
-    out["rays_traced"], out["iters"] = torch.stack(
-        [out["rays_traced"], out["iters"]]).tolist()
+    with profiling.host_read("pool.counts"):
+        out["rays_traced"], out["iters"] = torch.stack(
+            [out["rays_traced"], out["iters"]]).tolist()
+    profiling.count("pool.live_lanes", out["rays_traced"] // 3)
+    profiling.count("pool.lane_iters", out["lanes"] * out["iters"])
+    profiling.count("pool.iters", out["iters"])
     return out
 
 
@@ -614,7 +631,9 @@ def render_pooled_tensors(seed, nonce, scene: scene_mod.Scene,
                           with_points: bool = False):
     """render_pooled with "rays_traced" and "iters" as 0-d int64 tensors
     on the device: it reads no host value, and seed and nonce may be 0-d
-    tensors, so torch.export captures it (engine/api.step_core)."""
+    tensors, so torch.export captures it (engine/api.step_core). Spans
+    pool.round (each round of _pool_round) and pool.merge (the sample-order
+    merge)."""
     _check_modes(transmitter_kind, render_mode)
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
@@ -633,40 +652,43 @@ def render_pooled_tensors(seed, nonce, scene: scene_mod.Scene,
     lives = []
     for s0 in range(0, spp, per_round):
         s1 = min(spp, s0 + per_round)
-        store, live = _pool_round(
-            seed, (nonce + s0) & prng.MASK, scene, cam, ambience, w, h,
-            transmitter_kind, s1 - s0, row0, full_h, pool, color,
-            with_points, 1.0 / spp)
+        with profiling.span("pool.round"):
+            store, live = _pool_round(
+                seed, (nonce + s0) & prng.MASK, scene, cam, ambience, w, h,
+                transmitter_kind, s1 - s0, row0, full_h, pool, color,
+                with_points, 1.0 / spp)
         lives.append(live)
+        with profiling.span("pool.merge"):
+            if color:
+                for k in range(s1 - s0):   # in sample order, as render_frames
+                    hue = cam.conf.sensor_color[store["chan"][k].long()].T
+                    acc += (store["rad"][k] * hue) * float(n_channels)
+            else:
+                mind = store["mind"]
+                k = torch.isfinite(mind).to(torch.uint8).argmax(dim=0)
+                first_d = torch.where(torch.isfinite(first_d), first_d,
+                                      torch.gather(mind, 0, k[None])[0])
+            if with_points:
+                mind = store["mind"]
+                best_d = mind.amin(dim=0)
+                has = torch.isfinite(best_d)
+                # the last sample at the least distance
+                k = (s1 - s0 - 1) - (mind.flip(0) == best_d).to(
+                    torch.uint8).argmax(dim=0)
+                pos = torch.gather(store["pos"], 1,
+                                   k[None, None].expand(3, 1, -1)).squeeze(1)
+                inten = torch.gather(store["int"], 0, k[None])[0]
+                new = (torch.where(has, pos, -1.0), best_d,
+                       torch.where(has, inten, 0.0))
+                best = new if best is None else merge_returns(best, new)
+    with profiling.span("pool.merge"):
         if color:
-            for k in range(s1 - s0):   # in sample order, as render_frames
-                hue = cam.conf.sensor_color[store["chan"][k].long()].T
-                acc += (store["rad"][k] * hue) * float(n_channels)
+            img = la.v3_to_array(acc * (1.0 / spp)).reshape(h, w, 3)
         else:
-            mind = store["mind"]
-            k = torch.isfinite(mind).to(torch.uint8).argmax(dim=0)
-            first_d = torch.where(torch.isfinite(first_d), first_d,
-                                  torch.gather(mind, 0, k[None])[0])
-        if with_points:
-            mind = store["mind"]
-            best_d = mind.amin(dim=0)
-            has = torch.isfinite(best_d)
-            # the last sample at the least distance
-            k = (s1 - s0 - 1) - (mind.flip(0) == best_d).to(
-                torch.uint8).argmax(dim=0)
-            pos = torch.gather(store["pos"], 1,
-                               k[None, None].expand(3, 1, -1)).squeeze(1)
-            inten = torch.gather(store["int"], 0, k[None])[0]
-            new = (torch.where(has, pos, -1.0), best_d,
-                   torch.where(has, inten, 0.0))
-            best = new if best is None else merge_returns(best, new)
-    if color:
-        img = la.v3_to_array(acc * (1.0 / spp)).reshape(h, w, 3)
-    else:
-        img = la.v3_to_array(_distance_rgb(first_d)).reshape(h, w, 3)
-    live = torch.cat(lives)
-    out = {"img": img, "rays_traced": 3 * live.sum(),
-           "iters": (live > 0).sum()}
+            img = la.v3_to_array(_distance_rgb(first_d)).reshape(h, w, 3)
+        live = torch.cat(lives)
+        out = {"img": img, "rays_traced": 3 * live.sum(),
+               "iters": (live > 0).sum(), "lanes": pool}
     if with_points:
         out["points"] = best
     return out

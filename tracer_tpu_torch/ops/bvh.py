@@ -166,7 +166,7 @@ def _traverse(bvh: LBVH, tmax0, origin, d, *, any_hit: bool,
         return out if any_hit else out + (t_max,)
 
     carry = loop.run(cond, body, init if any_hit else init + (tmax,),
-                     max_iters, check_every=CHECK_EVERY)
+                     max_iters, name="lbvh", check_every=CHECK_EVERY)
     return carry[3], (tmax if any_hit else carry[4])
 
 

@@ -57,6 +57,7 @@ import functools
 import torch
 
 from tracer_tpu_torch.ops import cuda_lib, shapes
+from tracer_tpu_torch.utils import profiling
 
 # Lanes per CUDA block, the tile of the chunk schedule, of K1, K2, K3, K4
 # and the yardstick (csrc/intersect.cu kBlock, kStreamedClosestBlock,
@@ -393,10 +394,12 @@ def walk_operands(name: str, phi, tmax, chunk_bounds,
     block of BLOCKS[name] lanes and the order in which the launch works
     its tiles, heavy_first(count). tiles is None where there is no
     schedule (a one-chunk scene) and for the yardstick, which works its
-    tiles in index order."""
-    g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
-                                             max_sched, BLOCKS[name])
-    tiles = None if count is None or name == EXACT else heavy_first(count)
+    tiles in index order. Span query.schedule (utils/profiling)."""
+    with profiling.span("query.schedule"):
+        g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
+                                                 max_sched, BLOCKS[name])
+        tiles = (None if count is None or name == EXACT
+                 else heavy_first(count))
     return g, sbounds, order, count, tiles
 
 

@@ -7,11 +7,17 @@ a given step on, every so many steps. Traced by torch.export or
 torch.compile, a host read is impossible, and the loop is torch's
 while_loop, which the captured program runs with its test on the device
 (the JAX package's lax.while_loop). One body serves both loops.
+
+Eagerly, each step is span <name>.iter and each read of the test the
+host read <name>.exit (utils/profiling), for the name the caller gives:
+"pool" for the path integrator's pool, "lbvh" for the walk.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tracer_tpu_torch.utils import profiling
 
 
 def _traced() -> bool:
@@ -23,8 +29,8 @@ def _while_loop(cond, body, carry: tuple):
     return while_loop(cond, body, carry)
 
 
-def run(cond, body, carry: tuple, max_steps: int, *, check_from: int = 0,
-        check_every: int = 1) -> tuple:
+def run(cond, body, carry: tuple, max_steps: int, *, name: str,
+        check_from: int = 0, check_every: int = 1) -> tuple:
     """carry = body(*carry) while cond(*carry), a 0-d bool tensor.
 
     Traced (torch.compiler.is_compiling()): torch's while_loop, which
@@ -32,13 +38,18 @@ def run(cond, body, carry: tuple, max_steps: int, *, check_from: int = 0,
     max_steps, and body must return new tensors of the carry's shapes and
     dtypes. Eager: at most max_steps steps, cond read on the host only
     before steps k >= check_from with (k - check_from) % check_every ==
-    0. The caller makes the two agree: cond holds before every step it
-    does not test, or a step after cond fails changes nothing."""
+    0; name names its spans (above). The caller makes the two agree:
+    cond holds before every step it does not test, or a step after cond
+    fails changes nothing."""
     if _traced():
         return tuple(_while_loop(cond, body, tuple(carry)))
+    step, exit_site = f"{name}.iter", f"{name}.exit"
     for k in range(max_steps):
-        if (k >= check_from and (k - check_from) % check_every == 0
-                and not bool(cond(*carry))):
-            break
-        carry = body(*carry)
+        if k >= check_from and (k - check_from) % check_every == 0:
+            with profiling.host_read(exit_site):
+                more = bool(cond(*carry))
+            if not more:
+                break
+        with profiling.span(step):
+            carry = body(*carry)
     return tuple(carry)

@@ -43,7 +43,7 @@ import torch
 
 from tracer_tpu_torch.engine.state import EngineState
 from tracer_tpu_torch.ops import intersect_kernel  # noqa: F401 (the ops)
-from tracer_tpu_torch.utils import checkpoint
+from tracer_tpu_torch.utils import checkpoint, profiling
 
 _FORMAT_VERSION = 1
 # the archive's file beside the program: what a step artifact takes
@@ -165,7 +165,8 @@ class LoadedStep:
         with torch.no_grad():
             img, n_frames, nonce = self.program(
                 *_counters(state), *(leaves[k] for k in sorted(self.leaves)))
-        n_frames, nonce = torch.stack([n_frames, nonce]).tolist()
+        with profiling.host_read("aot.counters"):
+            n_frames, nonce = torch.stack([n_frames, nonce]).tolist()
         return replace(state, img=img, n_frames=n_frames, nonce=nonce)
 
 

@@ -1,5 +1,6 @@
 """Minimal PNG writer, numpy and the standard library only (a copy of
-write_png in tracer_tpu/utils/image.py)."""
+write_png in tracer_tpu/utils/image.py), and the viewer's ARGB unpacking,
+recorded as a span (utils/profiling)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from tracer_tpu_torch.utils import profiling
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -34,7 +37,8 @@ def write_png(path: str, img) -> None:
 
 def argb_to_rgb(argb) -> np.ndarray:
     """(h, w) uint32 ARGB framebuffer (what render() returns) -> (h, w, 3)
-    uint8."""
-    a = np.asarray(argb, dtype=np.uint32)
-    return np.stack([(a >> 16) & 0xFF, (a >> 8) & 0xFF, a & 0xFF],
-                    axis=-1).astype(np.uint8)
+    uint8. Span image.argb_to_rgb (utils/profiling)."""
+    with profiling.span("image.argb_to_rgb"):
+        a = np.asarray(argb, dtype=np.uint32)
+        return np.stack([(a >> 16) & 0xFF, (a >> 8) & 0xFF, a & 0xFF],
+                        axis=-1).astype(np.uint8)
