@@ -7,13 +7,15 @@ Runs from the root of a checkout. Phases, each printed on its own line;
 any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc-builds csrc/intersect.cu and csrc/recip.cu from the
-              checkout into one library; counts each kernel's shared-
-              memory load instructions in cuobjdump -sass of it (those of
+  2. build    nvcc-builds csrc/intersect.cu, csrc/recip.cu and
+              csrc/shade.cu from the checkout into one library; counts
+              each kernel's shared-memory load instructions in cuobjdump
+              -sass of it (those of
               K1, K2, K3 and K4 are their scan loops', one triangle per
               iteration: 10 LDS.128 in each copy of the loop the compiler
               emitted, and no narrower load, or the phase fails); K1's
-              registers and spills as ptxas printed them
+              registers and spills as ptxas printed them; K6 and K7 (the
+              shading) read no shared memory
   3. kernels  the hand kernels against their plain PyTorch versions on
               the card: Cornell camera and first-bounce rays at 512x512,
               a 1,100-triangle 5-chunk random scene with on-plane
@@ -37,8 +39,10 @@ any failure exits non-zero:
               with its rays_traced, iterations, pool lanes P and the live
               share of its lane-iterations; 3 x step_render; checks the
               image and that every kernel launched and no plain intersect
-              version ran; inside the same window the exact kernel runs
-              once on the camera rays, and K1's hits on them, taken before
+              or shading version ran, K6 and K7 once a bounce (as often
+              as K3), their counts set to 0 just before the window;
+              inside the same window the exact kernel runs once on the
+              camera rays, and K1's hits on them, taken before
               the window, must equal its own. Then the pool again from the
               same seed (image bit for bit) and render_frames (spp whole
               wavefronts, the plain per-frame version) at the same 16 spp
@@ -63,10 +67,20 @@ any failure exits non-zero:
               iteration, wrapper call and launch alone, beside the plain
               version and the bound of the same inputs: the ms, plain_ms
               and bound_ms of the kernels line
-  6. bigscene the big-scene path on subdivisions of the Cornell box
+  6. shade    K6 and K7 (csrc/shade.cu, the ops shade_prepare and
+              shade_finish) on the operands pool iteration 1 of a 16-spp
+              pool render hands them (2,097,152 lanes), for the Cornell
+              render (config 0, 512x512) and the capture (config 2,
+              640x480, the fan per lane): against their plain version run
+              on the card on the same operands, every output bit for bit
+              on every lane; each timed as the op (wrapper) and as its
+              launch alone, beside the plain version and the bound of the
+              bytes its operands move: the ms, alone_ms, plain_ms and
+              bound_ms of the kernels line
+  7. bigscene the big-scene path on subdivisions of the Cornell box
               (the same surfaces and materials), run as: the render and
               its breakdown (timed), the checks that time nothing (beside
-              phase 14's exports, with phase 10), the timings; all four
+              phase 15's exports, with phase 11), the timings; all four
               kernels on
               subdivide(cornell_like, 5) (22,528 triangles, 88 chunks)
               and on cornell-sub6 = subdivide(cornell_like, 6) (90,112
@@ -98,7 +112,7 @@ any failure exits non-zero:
               on the same first-bounce rays of subdivide(cornell_like,
               4), 5 and 6, where ops/intersect_kernel.STREAM_MIN_T_PAD
               switches between them
-  7. recip    K5: the approximate-reciprocal probe
+  8. recip    K5: the approximate-reciprocal probe
               (utils/measure_recip.measure) at n = 2^20 on the card, its
               JSON line, max_rel within APPROX_RECIP_REL = 2^-8 and within
               RCP_APPROX_REL = 2^-22 (rcp.approx's documented 1 ulp); K5
@@ -107,7 +121,7 @@ any failure exits non-zero:
               timed at 2^20 and 2^26 beside the bandwidth bound, and for
               K5 and torch.reciprocal the host microseconds per call and
               the device time alone (calls replayed from a CUDA graph)
-  8. lidar    the LiDAR capture of the reference's demo-save: init(conf
+  9. lidar    the LiDAR capture of the reference's demo-save: init(conf
               2) at 640x480, sample_points_n(s, 100) (the pool), timed,
               with rays_traced, iterations, P and live share taken from
               the same run; the points' window, miss encoding and return
@@ -128,7 +142,7 @@ any failure exits non-zero:
               the queries of the iterations phase 5 picks (2,097,152 and
               4,194,304 lanes) against
               the plain version and the exact kernel as in phase 5
-  9. lbvh     accel="lbvh" (plain torch) built on the card for the Cornell
+ 10. lbvh     accel="lbvh" (plain torch) built on the card for the Cornell
               box and subdivide(cornell_like, 3): closest hit on the
               camera and first-bounce rays and any hit on the 2N shadow
               lanes against the dense accel (K1/K3): ok equal off boundary
@@ -139,10 +153,10 @@ any failure exits non-zero:
               triangle's |a|, u, v and t); a 64x64 4-spp
               render whose mean lies within 3% of the dense accel's; build
               ms and ms per query (utils/profiling.PhaseTimer)
- 10. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
+ 11. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
               card, with either accel, resumes the next step bit for bit
-              (run after phase 6's checks, beside phase 14's exports)
- 11. parallel parallel/render.py on PARALLEL_RANKS gloo ranks sharing the
+              (run after phase 7's checks, beside phase 15's exports)
+ 12. parallel parallel/render.py on PARALLEL_RANKS gloo ranks sharing the
               card (parallel/local.run_sharded spawns them after the
               parent built the kernels): render_pooled_sharded of the
               512x512 Cornell box at 16 spp over (2, 2), 3 step_sharded
@@ -157,23 +171,23 @@ any failure exits non-zero:
               single call's; then one NCCL group of world size 1 that
               reduces a tensor on the card and renders through a (1, 1)
               mesh, bit for bit the single render
- 12. viewer   frontends/interactive.py headless through its CLI at
+ 13. viewer   frontends/interactive.py headless through its CLI at
               800x600 for 16 frames: frames per second, its last frame
               equal to that of 32 step + render calls of the API
- 13. native   native/objloader.cpp built with g++ (utils/native.py; its
+ 14. native   native/objloader.cpp built with g++ (utils/native.py; its
               build time), an OBJ + MTL written from
               subdivide(cornell_like, 5) read back natively and by the
               Python loader (equal to each other and to the arrays
               written), and the sharded capture's points written as PCD
               natively and by utils/pcd.py, byte for byte equal
- 14. aot      the exported step (utils/aot.py) of four states, each with
+ 15. aot      the exported step (utils/aot.py) of four states, each with
               the accumulation on and one frame taken: the 512x512
               Cornell box (K1/K3), cornell-sub6 at 512x512 (K2/K4), the
               640x480 config-2 capture in distance mode (K1/K3) and a
               128x128 LBVH box (no kernel); the four exported at once by
               processes of their own at the lowest priority, started
-              before phase 6's checks and waited for after them and
-              phase 10, beside work that times nothing (seconds and bytes
+              before phase 7's checks and waited for after them and
+              phase 11, beside work that times nothing (seconds and bytes
               of each), then
               one fresh process that loads each state from a checkpoint
               and its artifact (seconds) and steps it 3 times (each wall
@@ -183,7 +197,8 @@ any failure exits non-zero:
               process (their walls printed beside), the kernels each
               state needs launched from the exported step and no plain
               version called
- 15. result   a JSON line of the kernels, then the last line
+ 16. result   a JSON line of the kernels (K1-K7 and the exact
+              kernel), then the last line
               {"ok": true, "device": {...}}
 
 Tolerances (f32 sums in another order, FMA contraction in the kernel):
@@ -209,8 +224,11 @@ K1-K4 the operations are the (lane, triangle) tests the answer needs
 (kernel_cases.needed_tests), 85 flops each: for a closest query every
 chunk a ray enters up to its best t; for an any-hit query one chunk per
 occluded lane and every chunk an unoccluded lane enters before tmax.
+K6 and K7 are bound by their bytes alone (shade_bytes: 185 bytes a lane
+for K6 without a fan, 24 for K7); their operations are not counted.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -258,12 +276,19 @@ CAM_ORIGIN = (0.0, 0.8, 1.8)
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
 EXACT = "closest_hit_exact"   # the yardstick, never on the path
+SHADE_KERNELS = ("shade_prepare", "shade_finish")   # K6, K7 (csrc/shade.cu)
 REPLACES = {
     "closest_hit": "tracer_tpu/ops/pallas/intersect_kernel.py:429",
     EXACT: "tracer_tpu/ops/pallas/intersect_kernel.py:429",
     "closest_hit_streamed": "tracer_tpu/ops/pallas/intersect_kernel.py:589",
     "any_hit": "tracer_tpu/ops/pallas/intersect_kernel.py:497",
     "any_hit_streamed": "tracer_tpu/ops/pallas/intersect_kernel.py:704",
+    # no TPU kernel: XLA fuses NEE + MIS and the BSDF step
+    "shade_prepare": "tracer_tpu/engine/direct.py:144 (estimate_direct, up "
+                     "to its query), tracer_tpu/engine/integrator.py:116 "
+                     "(XLA-fused)",
+    "shade_finish": "tracer_tpu/engine/direct.py:144 (estimate_direct, after "
+                    "its query), :242 (XLA-fused)",
 }
 # Published H100 SXM rates (NVIDIA's data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -298,6 +323,52 @@ def tap(module, name, calls):
     module.name also appends (args, kwargs, result) to calls."""
     from tracer_tpu_torch.utils import kernel_timing
     return kernel_timing.tap(module, name, calls)
+
+
+@contextlib.contextmanager
+def tap_call(module, name, index, keep):
+    """Within the block, call number `index` (from 0) of module.name also
+    appends (args, kwargs, result) to keep; the other calls keep nothing."""
+    fn = getattr(module, name)
+    calls = [0]
+
+    def tapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if calls[0] == index:
+            keep.append((args, kwargs, out))
+        calls[0] += 1
+        return out
+
+    setattr(module, name, tapped)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, fn)
+
+
+def reset_path_counts(ik):
+    """Set the launch and plain-call counts of K1-K4 and of the shading
+    kernels K6/K7 to 0."""
+    from tracer_tpu_torch.engine import shade
+    ik.reset_counts()
+    shade.reset_counts()
+
+
+def path_counts(ik, phase):
+    """(launches, plain_calls) of K1-K4 and K6/K7 since reset_path_counts.
+    K6 and K7 launch once a bounce, as the any-hit query does on a scene
+    with a light (K3 or K4), and no plain version runs; else this
+    raises."""
+    from tracer_tpu_torch.engine import shade
+    launches = {**ik.launches, **shade.launches}
+    plain = {**ik.plain_calls, **shade.plain_calls}
+    bounces = launches["any_hit"] + launches["any_hit_streamed"]
+    log(phase, f"shading kernels: launches {dict(shade.launches)}, plain "
+        f"calls {dict(shade.plain_calls)}, any-hit launches {bounces}")
+    if (not launches["shade_prepare"] == launches["shade_finish"] == bounces
+            or bounces <= 0 or max(shade.plain_calls.values()) != 0):
+        raise AssertionError("the shading kernels did not run once a bounce")
+    return launches, plain
 
 
 # ---------------------------------------------------------------------------
@@ -394,8 +465,12 @@ def shared_loads(path):
         if m:
             cur = next((f"{k}_kernel"
                         for k in VARIANTS + (EXACT, "approx_reciprocal")
+                        + SHADE_KERNELS
                         if f"{k}_kernel" in m.group(1)), m.group(1))
-            if "ILb1E" in m.group(1):
+            flags = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
+            if cur.startswith("shade_prepare") and flags:
+                cur += " (lights %s, transmitter %s)" % flags.groups()
+            elif "ILb1E" in m.group(1):
                 cur += " (stats on)"
             counts[cur], code[cur] = {}, []
             continue
@@ -413,8 +488,13 @@ def check_wide_loads(loads):
     """K1, K2, K3 and K4 (with and without stats) read shared memory only
     in their scan loop, one triangle per iteration: 10 LDS.128 in each
     copy of the loop, and no narrower load. The exact kernel (row-major
-    stage, 64-bit loads) and K5 (no shared memory) are not held to it."""
+    stage, 64-bit loads) and K5 are not held to it; K6 and K7 (the
+    shading, one thread a lane) read no shared memory."""
     for k, c in loads.items():
+        if k.startswith(SHADE_KERNELS):
+            if c:
+                raise AssertionError(f"{k} reads shared memory: {c}")
+            continue
         if k.startswith((f"{EXACT}_kernel", "approx_reciprocal")):
             continue
         wide = c.get("LDS.128", 0)
@@ -815,7 +895,9 @@ def render_cell(T, integrator, ik, s, phase, card, before=None, after=None):
     """One cell through the API: warm up, call before() if given, set the
     counts to 0, time sample_n_frames(s, 17) (the pool at 16 spp; its
     rays and iterations tapped from the same call), call after() if
-    given and read the counts. Then, outside the window: the pool again
+    given and read the counts (K1-K4's and the shading kernels', which
+    must launch once a bounce: as often as the any-hit query, with no
+    plain version). Then, outside the window: the pool again
     from the same seed (bit for bit), and render_frames at the same 16
     spp on the same state, timed, held against the pool. Returns (image,
     launches, plain_calls, iters) of the API run."""
@@ -828,7 +910,7 @@ def render_cell(T, integrator, ik, s, phase, card, before=None, after=None):
     if before is not None:
         before()
     torch.cuda.synchronize()
-    ik.reset_counts()
+    reset_path_counts(ik)
     pooled = []
     t0 = time.perf_counter()
     with tap(integrator, "render_pooled", pooled):
@@ -838,7 +920,7 @@ def render_cell(T, integrator, ik, s, phase, card, before=None, after=None):
     if after is not None:
         after()
         torch.cuda.synchronize()
-    launches, plain = dict(ik.launches), dict(ik.plain_calls)
+    launches, plain = path_counts(ik, phase)
     if len(pooled) != 1:
         raise AssertionError("sample_n_frames did not run the pool once")
     out = pooled[0][2]
@@ -912,6 +994,150 @@ def phase_main(T, integrator, ik, scene_arrays, card, device):
     if argb0 >> 24 != 0xFF:
         raise AssertionError("ARGB alpha byte is not 0xFF")
     return s, launches, float(img.mean())
+
+
+def lane_bytes(x, n):
+    """Bytes of operand x that a kernel over n lanes moves: each lane's
+    values if the last axis runs over the lanes (n, or 2n for the packed
+    shadow lanes), else x once (0 for an operand that is not a tensor)."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        return 0
+    if x.dim() and x.shape[-1] in (n, 2 * n) and x.stride(-1) != 0:
+        return x.numel() * x.element_size()
+    return x[..., :1].numel() * x.element_size()
+
+
+def shade_bytes(name, args, outs, n):
+    """The bytes K6 or K7 must move: each lane operand read once, each
+    output written once; for K6 the light table once and, where the fan
+    runs over the lanes (sectors (8, 9, n)), one sector's 36 bytes on the
+    lanes that select it, n_trans / n_lights of them under the uniform
+    select. (185 bytes a lane for K6 without a fan, 24 for K7.)"""
+    if name == "shade_finish":
+        return (sum(lane_bytes(x, n) for x in args[:6])
+                + sum(lane_bytes(x, n) for x in outs))
+    sectors = args[15]
+    moved = sum(lane_bytes(x, n) for x in args[:14])
+    moved += args[14].numel() * args[14].element_size()
+    moved += sum(lane_bytes(x, n) for x in outs)
+    if sectors is not None:
+        n_trans = sectors.shape[0]
+        n_lights = args[14].shape[0] + n_trans
+        if sectors.stride(-1) != 0 and sectors.shape[-1] == n:
+            moved += 36 * n * n_trans / n_lights
+        else:
+            moved += sectors.numel() * sectors.element_size()
+    return moved
+
+
+def phase_shade(T, integrator, scene_arrays, card, device):
+    """K6 and K7 (csrc/shade.cu) at the main path's shapes: the operands
+    that pool iteration POOL_TIMED of a 16-spp pool render hands to
+    engine/shade.prepare and finish, P = 2,097,152 lanes of fresh
+    primaries among bounce rays, for the render (config 0, 512x512) and
+    the capture (config 2, 640x480, the scanning fan per lane). Each op
+    against its plain version run on the card on the same operands: every
+    output equal bit for bit on every lane. Then each timed as the op
+    (wrapper) and as its launch alone (the library's entry point called
+    again with the op's own operands), beside the plain version and the
+    bound of the bytes its operands move. Returns name -> fields of the
+    kernels line (the capture's under capture_*)."""
+    import ctypes
+    import torch
+    from tracer_tpu_torch.engine import shade
+    from tracer_tpu_torch.ops import cuda_lib
+    ops = torch.ops.tracer_tpu_torch
+    tris, tm, mats = scene_arrays
+    out = {k: {} for k in SHADE_KERNELS}
+    for conf, (w, h), tag in ((0, (SIZE, SIZE), ""),
+                              (2, (LIDAR_W, LIDAR_H), "capture_")):
+        s = T.init(0, h, w, conf, tris, tm, mats, cam_origin=CAM_ORIGIN,
+                   device=device)
+        prep_calls, fin_calls = [], []
+        with tap_call(shade, "prepare", POOL_TIMED, prep_calls), \
+                tap_call(shade, "finish", POOL_TIMED, fin_calls):
+            integrator.render_pooled(
+                s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, w, h,
+                s.transmitter_kind, PROFILE_SPP, s.render_mode,
+                with_points=conf == 2)
+        torch.cuda.synchronize()
+        (pa, pkw, _), = prep_calls
+        (fa, fkw, _), = fin_calls
+        args = shade.prepare_args(*pa, **pkw)
+        fin = shade.finish_args(*fa, **fkw)
+        n = args[0].shape[0]
+        what = {"shade_prepare": (args, lambda: ops.shade_prepare(*args),
+                                  lambda: shade._prepare_plain(*args)),
+                "shade_finish": (fin, lambda: ops.shade_finish(*fin),
+                                 lambda: shade._finish_plain(*fin))}
+        for name, (a, op, plain) in what.items():
+            got, want = op(), plain()
+            got = got if isinstance(got, (tuple, list)) else (got,)
+            want = want if isinstance(want, (tuple, list)) else (want,)
+            torch.cuda.synchronize()
+            unequal, max_abs = 0, 0.0
+            for g, r in zip(got, want):
+                gb = g.view(torch.int32) if g.dtype == torch.float32 else g
+                rb = r.view(torch.int32) if r.dtype == torch.float32 else r
+                unequal += int((gb != rb).sum())
+                if g.is_floating_point():
+                    d = (g - r).abs().nan_to_num(0.0)
+                    max_abs = max(max_abs, float(d.max()))
+            hits = int(((fin[2] & shade.HIT) != 0).sum())
+            log("shade", f"{name} at config {conf}, pool iteration "
+                f"{POOL_TIMED} ({n} lanes, {int(args[1].sum())} alive, "
+                f"{hits} hit): against the plain version on the card, "
+                f"{unequal} values not equal bit for bit over {len(got)} "
+                f"outputs, max abs {max_abs:.3e}")
+            if unequal:
+                raise AssertionError(f"{name} differs from its plain version")
+            # the launch alone: the op's own operands and outputs, the
+            # latter held while its entry point is called again
+            seen = {}
+            launch = shade._launch
+
+            def spy(k, ptrs, ints, dev):
+                seen[k] = (list(ptrs), list(ints))
+                return launch(k, ptrs, ints, dev)
+
+            shade._launch = spy
+            try:
+                held = op()
+            finally:
+                shade._launch = launch
+            ptrs, ints = seen[name]
+            entry = getattr(shade.build(), f"{name}_launch")
+            p = (ctypes.c_void_p * len(ptrs))(*ptrs)
+            q = (ctypes.c_longlong * len(ints))(*ints)
+            stream = cuda_lib.raw_stream(args[0].device.index)
+
+            def alone():
+                if entry(p, q, len(ptrs), len(ints), stream):
+                    raise RuntimeError(f"{name} launch failed")
+
+            t = {"ms": ms_per_call(op), "alone_ms": ms_per_call(alone),
+                 "plain_ms": ms_per_call(plain, calls=5, rounds=3)}
+            del held
+            moved = shade_bytes(name, a, got, n)
+            t["bound_ms"], t["bound_by"] = bound(moved, 0)
+            t["timed_at"] = (f"pool iteration {POOL_TIMED} of a "
+                             f"{PROFILE_SPP}-spp {w}x{h} config-{conf} "
+                             f"render, {n} lanes")
+            log("shade", f"time {name} at config {conf}: wrapper "
+                f"{t['ms']:.4f} ms, alone {t['alone_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({moved / n:.1f} B a lane at 3.35 TB/s), share of the "
+                f"bound alone {100 * t['bound_ms'] / t['alone_ms']:.1f}% "
+                f"(median of {TIME_ROUNDS} rounds of {TIME_CALLS} "
+                f"back-to-back calls, on {card})")
+            out[name].update({f"{tag}{f}": v for f, v in t.items()})
+            if not tag:
+                out[name]["max_abs_err"] = max_abs
+            del got, want
+        del prep_calls, fin_calls, args, fin, what, s
+        torch.cuda.empty_cache()
+    return out
 
 
 def busy_us(spans):
@@ -1571,13 +1797,13 @@ def phase_lidar(T, integrator, ik, scene_arrays, card, device, errs):
     T.sample_points_n(s, 1)   # warm-up
     torch.cuda.synchronize()
     pooled = []
-    ik.reset_counts()
+    reset_path_counts(ik)
     t0 = time.perf_counter()
     with tap(integrator, "render_pooled", pooled):
         s2, pts = T.sample_points_n(s, LIDAR_SPP)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches, plain = dict(ik.launches), dict(ik.plain_calls)
+    launches, plain = path_counts(ik, "lidar")
     if len(pooled) != 1:
         raise AssertionError("sample_points_n did not run the pool once")
     out = {k: v for k, v in pooled[0][2].items() if k != "points"}
@@ -2440,6 +2666,8 @@ def main():
     clock("breakdown")
     del s
     torch.cuda.empty_cache()
+    shade_times = phase_shade(T, integrator, scene_arrays, card, device)
+    clock("shade")
     # phase aot's exports run beside the checks that time nothing: the
     # big-scene checks and the checkpoint phase
     aot = []
@@ -2505,6 +2733,12 @@ def main():
                     "source": "tracer_tpu_torch/csrc/recip.cu",
                     "replaces": "benchmarks/measure_recip.py:30",
                     **{k: k5[k] for k in fields}})
+    # K6 and K7: launches of the main path's window, the rest at the
+    # operands of its pool (capture_*: the capture's)
+    kernels += [{"name": f"{k}_kernel", "route": "cuda",
+                 "source": "tracer_tpu_torch/csrc/shade.cu",
+                 "replaces": REPLACES[k], "launches": launches[k],
+                 **shade_times[k]} for k in SHADE_KERNELS]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was not launched")
     log("result", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")

@@ -14,14 +14,12 @@ import pytest
 import torch
 
 import tracer_tpu_torch as T
-from tracer_tpu_torch.engine import direct as direct_mod
 from tracer_tpu_torch.engine import integrator as tint
+from tracer_tpu_torch.engine import shade
 from tracer_tpu_torch.models import scene as scene_mod
 from tracer_tpu_torch.ops import intersect
 from tracer_tpu_torch.ops import intersect_kernel as ik
-from tracer_tpu_torch.ops import linalg as la
-from tracer_tpu_torch.ops import materials, shapes
-from tracer_tpu_torch.ops import rng as prng
+from tracer_tpu_torch.ops import shapes
 from tracer_tpu_torch.ops import spectrum as spec
 from tracer_tpu_torch.utils import kernel_cases as kc
 from tracer_tpu_torch.utils import testscenes
@@ -186,25 +184,15 @@ def _path_trace_every_lane(state, scene, origin, d, wavelen, ambience,
             break
         inter = scene_mod.closest_interaction(
             scene, shapes.F32_HIGHEST, o, d, wavelen)
-        hit = alive & inter.ok
-        miss = alive & ~inter.ok
-        wo = -d
-        state, direct = direct_mod.direct_radiance(
-            state, scene, wo, inter, wavelen, trans, mask=hit)
-        radiance = direct + inter.emission_at_wl if i == 0 else direct
-        cum_dist = torch.where(hit, cum_dist + inter.t, cum_dist)
-        dist[i] = torch.where(hit, cum_dist, float("inf"))
-        rad[i] = torch.where(hit, radiance, torch.where(miss, ambient, 0.0))
-        state, wi, bsdf, pdf_val, pdf_kind = materials.sample_dir(
-            state, wo, inter.normal, inter.mat)
-        pdf = torch.where(pdf_kind == materials.PDF_DELTA, 1.0,
-                          torch.where(pdf_kind == materials.PDF_NONZERO,
-                                      pdf_val, 0.0))
-        cos_falloff = torch.abs(la.v3_dot(inter.normal, wi))
-        p_terminate = 1.0 - bsdf * cos_falloff / pdf
-        state, u = prng.next_unit(state)
-        alive_next = hit & (pdf != 0) & ~(u < p_terminate)
-        o_new, d_new = shapes.mkray_adjust_acne_v(inter.pos, inter.normal, wi)
+        prep = shade.prepare(state, alive, inter, d, wavelen, cum_dist,
+                             scene.light_table, trans)
+        sh = prep.shadow
+        blocked = (scene_mod.any_hit(scene, sh.tmax, sh.origin, sh.dir)
+                   if prep.n_lights else torch.zeros_like(sh.tmax, dtype=bool))
+        rad[i] = shade.finish(blocked, prep, inter.emission_at_wl, ambient,
+                              i == 0)
+        state, cum_dist, dist[i] = prep.state, prep.cum_dist, prep.rec_dist
+        alive_next, o_new, d_new = prep.scatters, prep.o, prep.d
         o = torch.where(alive_next, o_new, o)
         d = torch.where(alive_next, d_new, d)
         alive = alive_next

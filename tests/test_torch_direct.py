@@ -1,6 +1,7 @@
-"""Port parity: NEE+MIS direct lighting of tracer_tpu_torch against the
-JAX package, lane for lane, at the first hit of camera rays and at one
-bounce further."""
+"""Port parity: NEE+MIS direct lighting of tracer_tpu_torch (the bounce's
+shading, engine/shade.py, whose CPU version is the plain one) against the
+JAX package's direct_radiance, lane for lane, at the first hit of camera
+rays and at one bounce further."""
 
 import numpy as np
 import jax
@@ -13,7 +14,7 @@ from tracer_tpu.engine import direct as jdirect
 from tracer_tpu.models import camera as jcam, scene as jscene
 from tracer_tpu.ops import materials as jmat, rng as jrng, shapes as jshapes
 from tracer_tpu.utils import testscenes
-from tracer_tpu_torch.engine import direct as tdirect
+from tracer_tpu_torch.engine import integrator as tint
 from tracer_tpu_torch.models import camera as tcam, scene as tscene
 from tracer_tpu_torch.ops import materials as tmat, rng as trng
 from tracer_tpu_torch.ops import shapes as tshapes
@@ -41,9 +42,14 @@ def _jax_side(js, n, lane, bounce):
         inter = jscene.closest_interaction(js.scene, jnp.float32(HIGHEST), o,
                                            d, wl)
     conf = js.cam.conf
-    return jdirect.direct_radiance(st, js.scene, -d, inter, wl, None, "none",
-                                   conf.trans_theta, conf.trans_emission,
-                                   mask=inter.ok)
+    st, rad = jdirect.direct_radiance(st, js.scene, -d, inter, wl, None,
+                                      "none", conf.trans_theta,
+                                      conf.trans_emission, mask=inter.ok)
+    # the bounce's BSDF sample and roulette draw after NEE
+    # (tracer_tpu/engine/integrator.py:111-118)
+    st, _, _, _, _ = jmat.sample_dir(st, -d, inter.normal, inter.mat)
+    st, _ = jrng.next_unit(st)
+    return st, rad, inter.ok
 
 
 def _torch_side(ts, n, lane, bounce):
@@ -54,14 +60,17 @@ def _torch_side(ts, n, lane, bounce):
                                torch.as_tensor(W - lane // W - 1,
                                                dtype=torch.float32))
     o = o.expand(3, n)
-    inter = tscene.closest_interaction(ts.scene, tshapes.F32_HIGHEST, o, d, wl)
     if bounce:
-        st, wi, _, _, _ = tmat.sample_dir(st, -d, inter.normal, inter.mat)
-        o, d = tshapes.mkray_adjust_acne_v(inter.pos, inter.normal, wi)
         inter = tscene.closest_interaction(ts.scene, tshapes.F32_HIGHEST, o,
                                            d, wl)
-    return tdirect.direct_radiance(st, ts.scene, -d, inter, wl,
-                                   mask=inter.ok)
+        st, wi, _, _, _ = tmat.sample_dir(st, -d, inter.normal, inter.mat)
+        o, d = tshapes.mkray_adjust_acne_v(inter.pos, inter.normal, wi)
+    # the program's bounce: closest hit, NEE + MIS (engine/shade.py's plain
+    # version on the CPU), the BSDF step; no emission, no ambient, so the
+    # record of a hit is the direct light alone
+    b = tint._bounce(st, ts.scene, torch.ones((n,), dtype=torch.bool), False,
+                     o, d, wl, torch.zeros((n,)), torch.zeros((n,)), None)
+    return b.state, b.radiance, b.hit
 
 
 @pytest.mark.parametrize("bounce", [0, 1])
@@ -72,14 +81,17 @@ def test_direct_radiance_lane_for_lane(name, bounce):
     ts = convert.state_from_numpy(jax.tree.map(np.asarray, js), "cpu")
     n = W * W
     lane = np.arange(n)
-    jst, jrad = _jax_side(js, n, lane, bounce)
-    tst, trad = _torch_side(ts, n, lane, bounce)
+    jst, jrad, jhit = _jax_side(js, n, lane, bounce)
+    tst, trad, thit = _torch_side(ts, n, lane, bounce)
     np.testing.assert_array_equal(tst.numpy(), np.asarray(jst).astype(np.int64))
-    jrad = np.asarray(jrad)
-    trad = trad.numpy()
+    hit = thit.numpy()
+    np.testing.assert_array_equal(hit, np.asarray(jhit))
+    jrad = np.asarray(jrad)[hit]
     assert (jrad > 0).mean() > 0.1
-    # lanes whose bounce ray left the scene carry NaN in both packages
-    close = np.isclose(trad, jrad, rtol=1e-4, atol=1e-5, equal_nan=True)
+    # a lane whose bounce ray left the scene hits nothing: its record is 0
+    assert (trad.numpy()[~hit] == 0).all()
+    trad = trad.numpy()[hit]
+    close = np.isclose(trad, jrad, rtol=1e-4, atol=1e-5)
     assert close.all(), (np.nonzero(~close)[0][:10], trad[~close][:10],
                          jrad[~close][:10])
 

@@ -141,8 +141,8 @@ def test_select_lane_light(conf, dark):
         jst, js.scene, jsec, js.transmitter_kind, conf_j.trans_theta,
         conf_j.trans_emission, jwl, W * W)
     tst2, tl, tn = tdirect.select_lane_light(
-        tst, ts.scene, twl, tdirect.transmitter(ts.cam, ts.transmitter_kind,
-                                                td))
+        tst, ts.scene.light_table, twl,
+        tdirect.transmitter(ts.cam, ts.transmitter_kind, td))
     assert tn == jn == ts.scene.lights.count + 8
     np.testing.assert_array_equal(tst2.numpy(),
                                   np.asarray(jst2).astype(np.int64))
@@ -165,31 +165,42 @@ def _direct_pair(js, ts, bounce):
     jsec = jcam.gen_transmitter_sectors(js.cam, js.transmitter_kind, jd)
     trans = tdirect.transmitter(ts.cam, ts.transmitter_kind, td)
     ji = jscene.closest_interaction(js.scene, jnp.float32(HIGHEST), jo, jd, jwl)
-    ti = tscene.closest_interaction(ts.scene, tshapes.F32_HIGHEST, to, td, twl)
     if bounce:
         jst, jwi, _, _, _ = jmat.sample_dir(jst, -jd, ji.normal, ji.mat)
         jo, jd = jshapes.mkray_adjust_acne_v(ji.pos, ji.normal, jwi)
         ji = jscene.closest_interaction(js.scene, jnp.float32(HIGHEST), jo,
                                         jd, jwl)
-        tst, twi, _, _, _ = tmat.sample_dir(tst, -td, ti.normal, ti.mat)
-        to, td = tshapes.mkray_adjust_acne_v(ti.pos, ti.normal, twi)
         ti = tscene.closest_interaction(ts.scene, tshapes.F32_HIGHEST, to,
                                         td, twl)
-    jr = jdirect.direct_radiance(jst, js.scene, -jd, ji, jwl, jsec,
-                                 js.transmitter_kind, conf_j.trans_theta,
-                                 conf_j.trans_emission, mask=ji.ok)
-    tr = tdirect.direct_radiance(tst, ts.scene, -td, ti, twl, trans,
-                                 mask=ti.ok)
-    return jr, tr
+        tst, twi, _, _, _ = tmat.sample_dir(tst, -td, ti.normal, ti.mat)
+        to, td = tshapes.mkray_adjust_acne_v(ti.pos, ti.normal, twi)
+    jst, jrad = jdirect.direct_radiance(jst, js.scene, -jd, ji, jwl, jsec,
+                                        js.transmitter_kind,
+                                        conf_j.trans_theta,
+                                        conf_j.trans_emission, mask=ji.ok)
+    # the bounce's BSDF sample and roulette draw after NEE
+    # (tracer_tpu/engine/integrator.py:111-118)
+    jst, _, _, _, _ = jmat.sample_dir(jst, -jd, ji.normal, ji.mat)
+    jst, _ = jrng.next_unit(jst)
+    # the program's bounce (engine/shade.py's plain version on the CPU); no
+    # emission, no ambient: the record of a hit is the direct light alone
+    n = W * W
+    b = tint._bounce(tst, ts.scene, torch.ones((n,), dtype=torch.bool), False,
+                     to, td, twl, torch.zeros((n,)), torch.zeros((n,)), trans)
+    return (jst, jrad, ji.ok), (b.state, b.radiance, b.hit)
 
 
 @pytest.mark.parametrize("bounce", [0, 1])
 @pytest.mark.parametrize("conf", [1, 2])
 def test_direct_radiance_with_transmitter(conf, bounce):
     js, ts = _states(conf, W)
-    (jst, jrad), (tst, trad) = _direct_pair(js, ts, bounce)
+    (jst, jrad, jhit), (tst, trad, thit) = _direct_pair(js, ts, bounce)
     np.testing.assert_array_equal(tst.numpy(), np.asarray(jst).astype(np.int64))
-    jrad, trad = np.asarray(jrad), trad.numpy()
+    hit = thit.numpy()
+    np.testing.assert_array_equal(hit, np.asarray(jhit))
+    # a lane whose bounce ray left the scene hits nothing: its record is 0
+    assert (trad.numpy()[~hit] == 0).all()
+    jrad, trad = np.asarray(jrad)[hit], trad.numpy()[hit]
     assert (jrad > 0).mean() > 0.1
     ok = _close_share(trad, jrad, 1e-4, 1e-5, axis=None)
     assert ok.mean() >= 0.995, (np.nonzero(~ok)[0][:10], trad[~ok][:10],

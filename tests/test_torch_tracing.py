@@ -165,8 +165,8 @@ def test_host_reads_are_the_exit_checks_and_the_count(monkeypatch):
     assert c["host.reads"] == checks + 1
     summ = profiling.summary()
     assert summ["pool.iter"]["count"] == out["iters"]
-    for name in ("bounce.refill", "bounce.closest", "bounce.nee",
-                 "bounce.bsdf", "bounce.store"):
+    for name in ("bounce.refill", "bounce.closest", "bounce.shade",
+                 "bounce.shadow", "bounce.finish", "bounce.store"):
         assert summ[name]["count"] == out["iters"]
     assert summ["pool.round"]["count"] == 1
 

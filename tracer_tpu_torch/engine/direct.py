@@ -10,6 +10,14 @@ that the first N lanes carry whichever half is live and the second N
 only the lanes where both are; a half whose contribution is provably
 zero is traced with tmax 0. This decides which lanes the any-hit kernel
 traces. Occlusion consumes no RNG.
+
+The estimate is split at that query (tracer_tpu/engine/direct.py's
+estimate_direct): estimate_direct_prepare (the samples, both halves'
+parts and the packed shadow rays) and estimate_direct_finish (the parts
+the query leaves unoccluded). The split is the plain version of the
+bounce's shading kernels (engine/shade.py, csrc/shade.cu), which hold to
+it op for op; engine/shade.py composes it with the light select and the
+query.
 """
 
 from __future__ import annotations
@@ -62,14 +70,15 @@ def transmitter(cam: cam_mod.Camera, transmitter_kind: str, ray_dir):
                        cam.conf.trans_theta, cam.conf.trans_emission)
 
 
-def select_lane_light(state, scene: scene_mod.Scene, wavelen,
+def select_lane_light(state, light_table, wavelen,
                       trans: Transmitter | None = None):
-    """Uniformly pick one light per lane from the scene lights and the
-    transmitter fan's sectors (tracer_tpu/engine/direct.py:48-102): index
-    li < n_scene is a row of the light table, li >= n_scene the sector
-    li - n_scene of trans. Returns (state, LaneLights, n_lights), or
-    (state, None, 0) without any light."""
-    n_scene = scene.lights.count
+    """Uniformly pick one light per lane from the scene lights, the rows
+    of the scene's packed light table (L, 23), and the transmitter fan's
+    sectors (tracer_tpu/engine/direct.py:48-102): index li < n_scene is a
+    row of the light table, li >= n_scene the sector li - n_scene of
+    trans. Returns (state, LaneLights, n_lights), or (state, None, 0)
+    without any light."""
+    n_scene = light_table.shape[0]
     n_trans = 0 if trans is None else trans.sectors.shape[0]
     n_lights = n_scene + n_trans
     if n_lights == 0:
@@ -77,7 +86,7 @@ def select_lane_light(state, scene: scene_mod.Scene, wavelen,
     state, li = prng.select(state, n_lights)
     n = wavelen.shape[0]
     if n_scene > 0:
-        rows = scene.light_table[li.clamp(0, n_scene - 1).long()].T  # (23, N)
+        rows = light_table[li.clamp(0, n_scene - 1).long()].T  # (23, N)
         kind, theta = rows[22], rows[21]
         va, vb, vc = rows[0:3], rows[3:6], rows[6:9]
         em_val = spec.lookup_pairs(
@@ -134,12 +143,31 @@ def incident_radiance(light: LaneLights, hitp, lightp):
                                    diffuse))
 
 
-def estimate_direct(state, scene: scene_mod.Scene, wo,
-                    inter: scene_mod.Interaction, light: LaneLights,
-                    mask=None):
-    """MIS light-sample + BSDF-sample estimate toward each lane's light.
-    Returns (state, radiance (N,)). mask (N,) bool: lanes whose result the
-    caller discards; their shadow rays are traced with tmax 0."""
+class ShadowQuery(NamedTuple):
+    """Both MIS halves' shadow rays, packed into 2N lanes: lanes 0..N carry
+    whichever half is live (the light half where both are), lanes N..2N
+    the BSDF half where both are; a dead slot has tmax 0."""
+    tmax: torch.Tensor    # (2N,)
+    origin: torch.Tensor  # (3, 2N)
+    dir: torch.Tensor     # (3, 2N)
+
+
+class DirectTerms(NamedTuple):
+    """What estimate_direct_finish needs of estimate_direct_prepare."""
+    light: torch.Tensor   # (N,) the light half's part if its ray is clear
+    bsdf: torch.Tensor    # (N,) the BSDF half's part if its ray is clear
+    bf_l: torch.Tensor    # (N,) bool: the light sample lies behind the surface
+    bf_b: torch.Tensor    # (N,) bool: the BSDF sample's light point does
+    both: torch.Tensor    # (N,) bool: both halves live (slot 1 in use)
+
+
+def estimate_direct_prepare(state, wo, inter: scene_mod.Interaction,
+                            light: LaneLights, mask):
+    """The MIS estimate toward each lane's light up to its shadow query:
+    the light and BSDF samples, both halves' contributions and their
+    shadow rays. mask (N,) bool: the lanes whose result counts; the
+    others' shadow rays are traced with tmax 0. Returns (state,
+    ShadowQuery, DirectTerms)."""
     is_point = light.kind == lights_mod.KIND_POINT
     e1 = light.b - light.a
     e2 = light.c - light.a
@@ -177,28 +205,23 @@ def estimate_direct(state, scene: scene_mod.Scene, wo,
     live_b = (~is_point & hit_ok & ~bf_b & (in_rad_b != 0)
               & (((kind_b == materials.PDF_DELTA)
                   | (kind_b == materials.PDF_NONZERO)) & (bsdf_b != 0)))
-    if mask is not None:
-        live_l &= mask
-        live_b &= mask
+    live_l &= mask
+    live_b &= mask
     # slot 0 carries whichever half is live, slot 1 the both-live lanes
     b_only = live_b & ~live_l
     both = live_b & live_l
-    n = wi_l.shape[-1]
-    blocked = scene_mod.any_hit(
-        scene,
-        torch.cat([torch.where(live_l | live_b,
-                               torch.where(b_only, st_b, st_l), 0.0),
-                   torch.where(both, st_b, 0.0)]),
-        torch.cat([torch.where(b_only, so_b, so_l), so_b], dim=1),
-        torch.cat([torch.where(b_only, sd_b, sd_l), sd_b], dim=1))
-    occ = bf_l | blocked[:n]
-    occ_b = bf_b | torch.where(both, blocked[n:], blocked[:n])
+    query = ShadowQuery(
+        tmax=torch.cat([torch.where(live_l | live_b,
+                                    torch.where(b_only, st_b, st_l), 0.0),
+                        torch.where(both, st_b, 0.0)]),
+        origin=torch.cat([torch.where(b_only, so_b, so_l), so_b], dim=1),
+        dir=torch.cat([torch.where(b_only, sd_b, sd_l), sd_b], dim=1))
 
-    in_radiance = torch.where(occ, 0.0, in_radiance)
+    # each part as it is where its shadow ray is clear (an occluded light
+    # half reads in_radiance 0, which the first test makes 0)
     light_part = torch.where(
         (light_pdf == 0) | (in_radiance == 0), 0.0,
         f_l * weight_l * in_radiance / light_pdf)
-
     f_b = bsdf_b * torch.abs(la.v3_dot(wi_b, inter.normal))
     weight_b = balance(pdf_b, inv_area)
     contrib = torch.where(
@@ -206,20 +229,17 @@ def estimate_direct(state, scene: scene_mod.Scene, wo,
         torch.where(kind_b == materials.PDF_NONZERO,
                     f_b * in_rad_b * weight_b / torch.clamp_min(pdf_b, 1e-30),
                     0.0))
-    bsdf_part = torch.where(is_point | ~hit_ok | occ_b, 0.0, contrib)
-    return state, light_part + bsdf_part
+    bsdf_part = torch.where(is_point | ~hit_ok, 0.0, contrib)
+    return state, query, DirectTerms(light_part, bsdf_part, bf_l, bf_b, both)
 
 
-def direct_radiance(state, scene: scene_mod.Scene, wo,
-                    inter: scene_mod.Interaction, wavelen,
-                    trans: Transmitter | None = None, mask=None):
-    """One-light estimate scaled by the light count, scene lights plus
-    transmitter sectors (tracer_tpu/engine/direct.py:242-257). Returns
-    (state, radiance (N,))."""
-    n_rays = wo.shape[-1]
-    state, light, n_lights = select_lane_light(state, scene, wavelen, trans)
-    if light is None:
-        return state, torch.zeros((n_rays,), device=wo.device)
-    state, radiance = estimate_direct(state, scene, wo, inter, light,
-                                      mask=mask)
-    return state, radiance * float(n_lights)
+def estimate_direct_finish(terms: DirectTerms, blocked):
+    """The MIS estimate after its shadow query: blocked (2N,) bool,
+    any_hit of the ShadowQuery. Returns radiance (N,) toward the one
+    light (the caller scales it by the light count)."""
+    n = terms.light.shape[0]
+    occ = terms.bf_l | blocked[:n]
+    occ_b = terms.bf_b | torch.where(terms.both, blocked[n:], blocked[:n])
+    return (torch.where(occ, 0.0, terms.light)
+            + torch.where(occ_b, 0.0, terms.bsdf))
+

@@ -35,13 +35,13 @@ from typing import NamedTuple
 import torch
 
 from tracer_tpu_torch.engine import direct as direct_mod
+from tracer_tpu_torch.engine import shade
 from tracer_tpu_torch.models import camera as cam_mod
 from tracer_tpu_torch.models import scene as scene_mod
 from tracer_tpu_torch.ops import intersect
 from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import loop
-from tracer_tpu_torch.ops import materials, shapes
 from tracer_tpu_torch.ops import rng as prng
 from tracer_tpu_torch.ops import spectrum as spec
 from tracer_tpu_torch.utils import profiling
@@ -99,43 +99,28 @@ def _bounce(state, scene: scene_mod.Scene, alive, first, o, d, wavelen,
     first says where a hit adds the surface's own emission (a lane's
     bounce 0): a python bool for all lanes, or (N,) bool. A lane that is
     not alive queries at tmax 0: it hits nothing and the kernel leaves it
-    out of its walk; every use of its interaction is masked. Spans
-    bounce.closest, bounce.nee and bounce.bsdf (utils/profiling)."""
+    out of its walk; every use of its interaction is masked. The shading
+    around the shadow query is engine/shade.py's two ops (the kernels on
+    the card). Spans bounce.closest, bounce.shade (shade_prepare),
+    bounce.shadow (the any-hit query) and bounce.finish (utils/profiling)."""
     far = torch.finfo(torch.float32).max   # shapes.F32_HIGHEST in f32
     with profiling.span("bounce.closest"):
         inter = scene_mod.closest_interaction(
             scene, torch.where(alive, far, 0.0), o, d, wavelen)
-        hit = alive & inter.ok
-        miss = alive & ~inter.ok
-
-    wo = -d
-    with profiling.span("bounce.nee"):
-        state, direct = direct_mod.direct_radiance(
-            state, scene, wo, inter, wavelen, trans, mask=hit)
-        if first is True:
-            lit = direct + inter.emission_at_wl
-        elif first is False:
-            lit = direct
-        else:
-            lit = direct + torch.where(first, inter.emission_at_wl, 0.0)
-        cum_dist = torch.where(hit, cum_dist + inter.t, cum_dist)
-        rec_dist = torch.where(hit, cum_dist, float("inf"))
-        radiance = torch.where(hit, lit, torch.where(miss, ambient, 0.0))
-
-    with profiling.span("bounce.bsdf"):
-        state, wi, bsdf, pdf_val, pdf_kind = materials.sample_dir(
-            state, wo, inter.normal, inter.mat)
-        pdf = torch.where(pdf_kind == materials.PDF_DELTA, 1.0,
-                          torch.where(pdf_kind == materials.PDF_NONZERO,
-                                      pdf_val, 0.0))
-        cos_falloff = torch.abs(la.v3_dot(inter.normal, wi))
-        p_terminate = 1.0 - bsdf * cos_falloff / pdf
-        state, u = prng.next_unit(state)
-        scatters = hit & (pdf != 0) & ~(u < p_terminate)
-        o_new, d_new = shapes.mkray_adjust_acne_v(inter.pos, inter.normal,
-                                                  wi)
-    return Bounce(state, hit, radiance, cum_dist, rec_dist, scatters,
-                  o_new, d_new)
+    with profiling.span("bounce.shade"):
+        prep = shade.prepare(state, alive, inter, d, wavelen, cum_dist,
+                             scene.light_table, trans)
+    with profiling.span("bounce.shadow"):
+        sh = prep.shadow
+        if prep.n_lights:
+            blocked = scene_mod.any_hit(scene, sh.tmax, sh.origin, sh.dir)
+        else:   # no light to sample: no shadow ray to trace
+            blocked = torch.zeros_like(sh.tmax, dtype=torch.bool)
+    with profiling.span("bounce.finish"):
+        radiance = shade.finish(blocked, prep, inter.emission_at_wl, ambient,
+                                first)
+    return Bounce(prep.state, prep.hit, radiance, prep.cum_dist,
+                  prep.rec_dist, prep.scatters, prep.o, prep.d)
 
 
 def path_trace(state, scene: scene_mod.Scene, origin, d, wavelen, ambience,
@@ -384,11 +369,13 @@ def render_frames(seed: int, nonce: int, scene: scene_mod.Scene,
 
 # Most lanes of the pool, by what the closest-hit query costs: a scene
 # whose triangles stay resident in shared memory (K1/K3) and one that is
-# streamed chunk by chunk (K2/K4). The loop is bound by the host's
+# streamed chunk by chunk (K2/K4). The loop was bound by the host's
 # dispatch of ~2,400-3,200 eager ops per iteration whatever P, so more
 # lanes mean fewer iterations until the device's time per iteration
 # passes the host's and the drain tail (<= PATH_LEN iterations) is most
-# of the run. Measured on an NVIDIA H100 at 700 W
+# of the run. (The shading kernels of engine/shade.py have since cut the
+# eager ops to about a third; the sizes below were measured before.)
+# Measured on an NVIDIA H100 at 700 W
 # (python -m tracer_tpu_torch.utils.pool_timing, seconds of two runs each,
 # at P = n/4 .. 16n of n pixels): 512x512 x 16 spp Cornell 3.59-3.61,
 # 1.77-1.82, 1.06-1.68 (P = n), 0.78-1.40, 0.59-1.17, 0.70-0.90 (8n =

@@ -1,7 +1,7 @@
 """Build and load the hand-written kernels of csrc/ as one shared library.
 
 Every CUDA source under csrc/ (intersect.cu: K1-K4 and their exact
-yardstick, recip.cu: K5) goes to
+yardstick, recip.cu: K5, shade.cu: K6-K7) goes to
 one nvcc call, at first use, into build/tracer_tpu_torch/ beside the
 package, keyed on a hash of the flags and of every source; the library
 is loaded with ctypes and each kernel's wrapper module declares the
@@ -86,13 +86,13 @@ def build_info() -> dict:
             "path": None if _Built.lib is None else _Built.lib._name}
 
 
-def kernel_resources() -> dict:
-    """What ptxas -v said of each kernel in the last build's log:
-    {mangled entry name: {"registers", "spill_stores", "spill_loads"}}
-    (bytes of spills per thread). Empty when load() found the library
-    already built."""
+def kernel_resources(log: str | None = None) -> dict:
+    """What ptxas -v said of each kernel in the last build's log (or in
+    `log`): {mangled entry name: {"registers", "spill_stores",
+    "spill_loads"}} (bytes of spills per thread). Empty when load() found
+    the library already built."""
     out, cur = {}, None
-    for line in _Built.log.splitlines():
+    for line in (_Built.log if log is None else log).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = out.setdefault(m.group(1), {})

@@ -7,9 +7,11 @@ serialises its jitted step with jax.export; this one captures
 engine/api.step_core with torch.export, as one program of aten ops, the
 pool's and the LBVH walk's loops as torch's while_loop, and the
 intersection kernels as the custom ops tracer_tpu_torch::closest_hit and
-tracer_tpu_torch::any_hit (ops/intersect_kernel.py). A fresh process
-loads the artifact and steps a state with no Python of the renderer:
-engine/integrator.py, engine/api.py and the scene build are not
+tracer_tpu_torch::any_hit (ops/intersect_kernel.py), the shading around
+the shadow query as tracer_tpu_torch::shade_prepare and shade_finish
+(engine/shade.py). A fresh process loads the artifact and steps a
+state with no Python of the renderer: engine/integrator.py,
+engine/api.py and the scene build are not
 imported.
 
   export_fn(fn, *example_args) -> bytes   fn captured at these shapes
@@ -41,6 +43,7 @@ from dataclasses import replace
 
 import torch
 
+from tracer_tpu_torch.engine import shade  # noqa: F401 (the ops)
 from tracer_tpu_torch.engine.state import EngineState
 from tracer_tpu_torch.ops import intersect_kernel  # noqa: F401 (the ops)
 from tracer_tpu_torch.utils import checkpoint, profiling
@@ -174,9 +177,9 @@ def load(blob: bytes):
     """The callable of an export_fn or export_step artifact: the program
     runs its aten graph and the registered ops, and never retraces the
     renderer's Python. It imports the op registrations
-    (ops/intersect_kernel.py) and the state's structure (engine/state.py,
-    utils/checkpoint.py), not engine/integrator.py or engine/api.py. A
-    step artifact gives a LoadedStep."""
+    (ops/intersect_kernel.py, engine/shade.py) and the state's structure
+    (engine/state.py, utils/checkpoint.py), not engine/integrator.py or
+    engine/api.py. A step artifact gives a LoadedStep."""
     extra = {_META: ""}
     program = torch.export.load(io.BytesIO(blob), extra_files=extra).module()
     meta = json.loads(extra[_META] or "null")
