@@ -2,18 +2,26 @@
 and its places in the program: off it records nothing and changes no
 bit; spans nest with the right self times and reach torch.profiler as
 host ops; the pool's counters and host reads agree with render_pooled's
-own outputs; an export records nothing."""
+own outputs; an export records nothing; the sorted queries' span, the
+kernels' lane counters and the collectives' span and bytes; the
+benchmark's reader of the sorted queries' host time."""
 
 import dataclasses
 import json
+import os
 import time
 
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from torch.profiler import ProfilerActivity, profile
 
 import tracer_tpu_torch as T
 from tracer_tpu_torch.engine import integrator as tint
+from tracer_tpu_torch.ops import intersect
+from tracer_tpu_torch.ops import intersect_kernel as ik
+from tracer_tpu_torch.parallel import render as par
 from tracer_tpu_torch.utils import aot, profiling, testscenes
 
 torch.set_num_threads(2)
@@ -197,7 +205,8 @@ def test_api_spans_and_the_lbvh_walk():
 def test_export_records_nothing_and_steps_to_the_same_bits():
     """utils/aot.py's export of the step, under tracing(): the traced
     program's spans and counts are no-ops, and the loaded step gives
-    api.step's bits, with one host read of its counters."""
+    api.step's bits, with one host read of its counters; its queries'
+    ops count the lanes they are handed, as api.step's do."""
     s = T.step(dataclasses.replace(_state(0, h=10, w=12), mode=True))
     with profiling.tracing():
         blob = aot.export_step(s)
@@ -205,9 +214,15 @@ def test_export_records_nothing_and_steps_to_the_same_bits():
     step = aot.load(blob)
     with profiling.tracing():
         got = step(s)
-    assert profiling.counters() == {"host.reads": 1,
-                                    "host.reads.aot.counters": 1}
-    want = T.step(s)
+    c = profiling.counters()
+    lanes = {k: v for k, v in c.items() if k.startswith("query.lanes.")}
+    assert {k: v for k, v in c.items() if k not in lanes} == {
+        "host.reads": 1, "host.reads.aot.counters": 1}
+    profiling.reset()
+    with profiling.tracing():
+        want = T.step(s)
+    assert lanes and lanes == {k: v for k, v in profiling.counters().items()
+                               if k.startswith("query.lanes.")}
     assert torch.equal(got.img, want.img)
     assert (got.n_frames, got.nonce) == (want.n_frames, want.nonce)
 
@@ -244,3 +259,147 @@ def test_device_trace_writes_spans_beside_the_trace(tmp_path):
     assert [e[0] for e in got["spans"]] == ["test.block"]
     assert got["summary"]["test.block"]["count"] == 1
     assert got["counters"] == {}
+
+
+def _rays(n, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    origin = torch.tensor([[0.0], [0.8], [1.8]]).expand(3, n)
+    d = torch.randn((3, n), generator=g)
+    d = d / torch.linalg.vector_norm(d, dim=0)
+    tmax = torch.rand((n,), generator=g) * 4.0
+    tmax[::5] = 0.0                                   # dead lanes
+    return origin, d, tmax
+
+
+@pytest.mark.parametrize("perm", ["odmorton", "oct", "off"])
+def test_query_sort_span_once_per_sorted_query(perm):
+    """query.sort wraps each query that sorts its lanes (a key named, or
+    "auto" on a card) once, and nothing when the recorder is off or the
+    query does not sort; the answers are the unsorted query's."""
+    dense = intersect.build_dense(torch.as_tensor(
+        testscenes.cornell_like()[0]))
+    origin, d, tmax = _rays(300)
+    want_c = intersect.closest_hit(dense, tmax, origin, d, perm="off")
+    want_a = intersect.any_hit(dense, tmax, origin, d, perm="off")
+    intersect.closest_hit(dense, tmax, origin, d, perm=perm)
+    assert profiling.summary() == {} and profiling.counters() == {}
+    with profiling.tracing():
+        got_c = intersect.closest_hit(dense, tmax, origin, d, perm=perm)
+        got_a = intersect.any_hit(dense, tmax, origin, d, perm=perm)
+        intersect.closest_hit(dense, tmax, origin, d)     # auto: CPU, no sort
+    for a, b in zip(got_c, want_c):
+        assert torch.equal(a, b)
+    assert torch.equal(got_a, want_a)
+    sorts = profiling.summary().get("query.sort", {}).get("count", 0)
+    assert sorts == (0 if perm == "off" else 2)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_query_lanes_count_the_lanes_handed_to_the_kernels(streamed,
+                                                          monkeypatch):
+    """query.lanes.<variant> sums, over a pooled render, the lanes each
+    query hands the kernel wrapper, under the variant's name (on the CPU
+    its plain version; the streamed variants where the scene streams)."""
+    if streamed:
+        monkeypatch.setattr(ik, "STREAM_MIN_T_PAD", 0)
+    handed = {"closest": 0, "any": 0}
+    for q in handed:
+        orig = getattr(ik, f"{q}_hit")
+
+        def wrapped(coeffs, phi, *a, _q=q, _orig=orig, **k):
+            handed[_q] += phi.shape[1]
+            return _orig(coeffs, phi, *a, **k)
+        monkeypatch.setattr(ik, f"{q}_hit", wrapped)
+    s = _state(0)
+    with profiling.tracing():
+        _pooled(s, 3)
+    c = profiling.counters()
+    lanes = {k[len("query.lanes."):]: v for k, v in c.items()
+             if k.startswith("query.lanes.")}
+    suffix = "_streamed" if streamed else ""
+    assert lanes == {"closest_hit" + suffix: handed["closest"],
+                     "any_hit" + suffix: handed["any"]}
+    assert handed["closest"] == c["pool.lane_iters"]
+
+
+def _mesh_rank(rank, world, store, out):
+    """One gloo rank: the sharded calls under the recorder, each call's
+    spans and counters apart; rank 0 writes them to `out`."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        s = _state(2, h=6, w=8)
+        meshes = {"sample": par.make_mesh(1, world),
+                  "tile": par.make_mesh(world, 1)}
+        calls = {"points": lambda: par.sample_points_sharded(
+                     s, meshes["sample"], 2),
+                 "render": lambda: par.render_pooled_sharded(
+                     _state(0, h=6, w=8), meshes["tile"], 2),
+                 "step": lambda: par.step_sharded(_state(0, h=6, w=8),
+                                                  meshes["tile"])}
+        got = {}
+        for name, call in calls.items():
+            profiling.reset()
+            with profiling.tracing():
+                call()
+            got[name] = {"count": profiling.summary()["mesh.reduce"]["count"],
+                         "bytes": profiling.counters()["mesh.reduce_bytes"]}
+        profiling.reset()
+        calls["points"]()
+        got["off"] = (profiling.summary(), profiling.counters())
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_reduce_once_per_collective(tmp_path):
+    """With 2 gloo ranks: the capture over the sample axis makes the
+    merge's MIN, MAX and SUM and the assembly's SUM, a render or step
+    over the tile axis the assembly's SUM alone; mesh.reduce counts each
+    once and mesh.reduce_bytes their tensors' bytes exactly."""
+    out = tmp_path / "got.json"
+    mp.spawn(_mesh_rank, nprocs=2, join=True,
+             args=(2, str(tmp_path / "store"), str(out)))
+    got = json.loads(out.read_text())
+    n = 6 * 8
+    assert got["points"] == {"count": 4,
+                             "bytes": 4 * n + 4 * n + 4 * 4 * n + 4 * 4 * n}
+    assert got["render"] == got["step"] == {"count": 1, "bytes": 4 * 3 * n}
+    assert got["off"] == [{}, {}]
+
+
+def test_query_prep_reader_reads_nothing_untraced():
+    from portbench import drive, harness
+    read = harness.reader("query.prep_ms_per_iter.streamed")
+    run = drive.Run("sample_n_frames", "offline", 4, 2, 3, 24)
+    assert read(run) is None
+    run.calls = [{"t0": 0.0, "t1": 1.0}]
+    run.iters = [5]
+    assert read(run) is None
+
+
+def test_query_prep_reader_reads_the_sorted_queries(monkeypatch):
+    """A traced stretch whose queries sort (every key forced to
+    odmorton, as "auto" does on a card): the reader gives the self ms of
+    query.sort and the ms of query.schedule over the pool's iterations."""
+    from portbench import drive, harness
+    monkeypatch.setattr(intersect, "resolve_perm",
+                        lambda *a, **k: "odmorton")
+    s = _state(0)
+    iters = []
+    with drive.Wrap(tint, "render_pooled",
+                    lambda out, *a, **k: iters.append(out["iters"])):
+        with profiling.tracing():
+            T.sample_n_frames(s, 3)
+    summ = profiling.summary()
+    assert summ["query.sort"]["count"] == 2 * iters[0]
+    run = drive.Run("sample_n_frames", "offline", W, H, 2, W * H * 2)
+    run.trace = {"iters": iters[0]}
+    want = 1e3 * (summ["query.sort"]["self_s"]
+                  + summ.get("query.schedule", {}).get("total_s", 0.0)) \
+        / iters[0]
+    got = harness.reader("query.prep_ms_per_iter.streamed")(run)
+    assert got == pytest.approx(want) and got > 0

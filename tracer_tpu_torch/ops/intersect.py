@@ -46,6 +46,7 @@ from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import morton as morton_mod
 from tracer_tpu_torch.ops import shapes
+from tracer_tpu_torch.utils import profiling
 
 # Chunk padding: small scenes pad to 128, larger ones to 256 triangles.
 PAD = 128
@@ -282,7 +283,10 @@ def closest_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
     """The closest-hit kernel wrapper on ray features phi (10, N), run on
     lanes sorted by the perm key when `perm` resolves to one, the dead
     lanes of a per-lane tmax (<= 0) first; (best_t, best_i) come back in
-    the caller's lane order. stream and max_sched go to ik.closest_hit."""
+    the caller's lane order. stream and max_sched go to ik.closest_hit.
+    A sorted query is span query.sort (utils/profiling), from the key
+    through the sort, the gather, the kernel wrapper (its query.schedule
+    span inside) and the scatter back."""
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
     per_lane = tmax.dim() > 0
     mode = resolve_perm(perm, dense.chunk_bounds.shape[0], phi.device)
@@ -290,13 +294,15 @@ def closest_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
     if mode is None:
         return ik.closest_hit(dense.coeffs, phi, tmax, dense.chunk_bounds,
                               **kw)
-    idx = lane_order(phi, tmax, dense.chunk_bounds, mode, dead_first=per_lane)
-    bt_s, bi_s = ik.closest_hit(dense.coeffs, phi[:, idx],
-                                tmax[idx] if per_lane else tmax,
-                                dense.chunk_bounds, **kw)
-    best_t, best_i = torch.empty_like(bt_s), torch.empty_like(bi_s)
-    best_t[idx] = bt_s
-    best_i[idx] = bi_s
+    with profiling.span("query.sort"):
+        idx = lane_order(phi, tmax, dense.chunk_bounds, mode,
+                         dead_first=per_lane)
+        bt_s, bi_s = ik.closest_hit(dense.coeffs, phi[:, idx],
+                                    tmax[idx] if per_lane else tmax,
+                                    dense.chunk_bounds, **kw)
+        best_t, best_i = torch.empty_like(bt_s), torch.empty_like(bi_s)
+        best_t[idx] = bt_s
+        best_i[idx] = bi_s
     return best_t, best_i
 
 
@@ -304,7 +310,8 @@ def any_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
                 stream=None, max_sched: int = ik.MAX_SCHED):
     """The any-hit kernel wrapper on ray features phi (10, N), run on
     sorted lanes as closest_hit_phi does; dead lanes (tmax <= 0) key -1,
-    so they sort first and fill whole blocks that schedule nothing."""
+    so they sort first and fill whole blocks that schedule nothing. A
+    sorted query is span query.sort, as in closest_hit_phi."""
     mode = resolve_perm(perm, dense.chunk_bounds.shape[0], phi.device,
                         any_hit=True)
     n = phi.shape[1]
@@ -313,11 +320,13 @@ def any_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
     kw = {"stream": stream, "max_sched": max_sched}
     if mode is None:
         return ik.any_hit(dense.coeffs, phi, tmax, dense.chunk_bounds, **kw)
-    idx = lane_order(phi, tmax, dense.chunk_bounds, mode, dead_first=True)
-    hit_s = ik.any_hit(dense.coeffs, phi[:, idx], tmax[idx],
-                       dense.chunk_bounds, **kw)
-    hit = torch.empty_like(hit_s)
-    hit[idx] = hit_s
+    with profiling.span("query.sort"):
+        idx = lane_order(phi, tmax, dense.chunk_bounds, mode,
+                         dead_first=True)
+        hit_s = ik.any_hit(dense.coeffs, phi[:, idx], tmax[idx],
+                           dense.chunk_bounds, **kw)
+        hit = torch.empty_like(hit_s)
+        hit[idx] = hit_s
     return hit
 
 

@@ -89,7 +89,9 @@ _SCHED_ELEMS = 1 << 24
 # Launches of each kernel, and calls of each one's plain version. A
 # wrapper adds one where it launches its kernel (or runs its plain
 # version) and nowhere else; reset_counts() sets all to 0. VARIANTS are
-# the kernels of the path (K1-K4), EXACT the yardstick.
+# the kernels of the path (K1-K4), EXACT the yardstick. Each launch, and
+# each plain call of the ops, also adds its lanes (phi's N, from the
+# shape) to the recorder's counter query.lanes.<kernel> (utils/profiling).
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
 EXACT = "closest_hit_exact"
@@ -451,6 +453,7 @@ def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
             raise RuntimeError(f"{name}_kernel launch failed: CUDA error "
                                f"{err}")
         launches[name] += 1
+        profiling.count("query.lanes." + name, n)
         return outs
 
     return launch, outs
@@ -477,7 +480,9 @@ _OPERANDS = ("(Tensor coeffs, Tensor phi, Tensor tmax, Tensor chunk_bounds, "
 def _closest_op(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
     _, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
-    plain_calls[variant_name("closest", streamed)] += 1
+    name = variant_name("closest", streamed)
+    plain_calls[name] += 1
+    profiling.count("query.lanes." + name, phi.shape[1])
     return _closest_plain(coeffs, phi, tmax, n_chunks, chunk_t)
 
 
@@ -500,7 +505,9 @@ def _closest_fake(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
 def _any_op(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
     _, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
-    plain_calls[variant_name("any", streamed)] += 1
+    name = variant_name("any", streamed)
+    plain_calls[name] += 1
+    profiling.count("query.lanes." + name, phi.shape[1])
     return _any_plain(coeffs, phi, tmax, n_chunks, chunk_t)
 
 

@@ -10,10 +10,11 @@ same call (SPMD, as under torchrun):
 Scene, accel and camera are replicated. Every rank returns the whole
 result, as the JAX package's shard_map with out_specs=P("tile") does.
 
-The collectives are all_reduce alone (SUM, MIN, MAX): the tile axis is
-assembled as a SUM of zero frames into which each rank wrote its own
-rows (x + 0.0 is exact, so a tile-only mesh gives the single render bit
-for bit). gloo handles CUDA tensors for all_reduce and broadcast only,
+The collectives are all_reduce alone (SUM, MIN, MAX), each one span
+mesh.reduce with its bytes in the counter mesh.reduce_bytes: the tile
+axis is assembled as a SUM of zero frames into which each rank wrote its
+own rows (x + 0.0 is exact, so a tile-only mesh gives the single render
+bit for bit). gloo handles CUDA tensors for all_reduce and broadcast only,
 and NCCL refuses two ranks on one device: with all_reduce alone the same
 code runs on gloo on the CPU, on gloo with several ranks sharing one
 card, and on NCCL with one card per rank. The caller picks the backend
@@ -36,6 +37,7 @@ from tracer_tpu_torch.engine import api, integrator
 from tracer_tpu_torch.engine.state import EngineState
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import rng as prng
+from tracer_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -84,6 +86,16 @@ def _rows(mesh: Mesh, h: int, spp: int | None = None) -> int:
     return h // mesh.n_tile
 
 
+def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None):
+    """dist.all_reduce of t in place: span mesh.reduce, and its bytes
+    added to the counter mesh.reduce_bytes (utils/profiling). The span
+    is the host's: on NCCL the call returns once the collective is
+    queued on the device."""
+    with profiling.span("mesh.reduce"):
+        dist.all_reduce(t, op=op, group=group)
+    profiling.count("mesh.reduce_bytes", t.numel() * t.element_size())
+
+
 def _assemble(tile: torch.Tensor, mesh: Mesh, h: int,
               write: bool = True) -> torch.Tensor:
     """The (h, ...) frame: a SUM over the mesh of zero frames into which
@@ -92,7 +104,7 @@ def _assemble(tile: torch.Tensor, mesh: Mesh, h: int,
     if write:
         rows = tile.shape[0]
         full[mesh.ti * rows:(mesh.ti + 1) * rows] = tile
-    dist.all_reduce(full, group=mesh.group)
+    _all_reduce(full, group=mesh.group)
     return full
 
 
@@ -136,13 +148,13 @@ def merge_points_newest(pos, distance, inten, si: int, mesh: Mesh):
     without a return has best_d = inf."""
     g = mesh.sample_group
     best_d = distance.clone()
-    dist.all_reduce(best_d, op=dist.ReduceOp.MIN, group=g)
+    _all_reduce(best_d, dist.ReduceOp.MIN, g)
     mine = distance <= best_d
     win = torch.where(mine, si, -1).to(torch.int32)
-    dist.all_reduce(win, op=dist.ReduceOp.MAX, group=g)
+    _all_reduce(win, dist.ReduceOp.MAX, g)
     sel = mine & (win == si)
     point = torch.where(sel, torch.cat([pos, inten[None]]), 0.0)
-    dist.all_reduce(point, group=g)
+    _all_reduce(point, group=g)
     return point[:3], point[3], best_d
 
 
