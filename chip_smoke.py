@@ -7,15 +7,18 @@ Runs from the root of a checkout. Phases, each printed on its own line;
 any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc-builds csrc/intersect.cu, csrc/recip.cu and
-              csrc/shade.cu from the checkout into one library; counts
+  2. build    nvcc-builds csrc/intersect.cu, csrc/prep.cu,
+              csrc/recip.cu and csrc/shade.cu from the checkout into one
+              library; counts
               each kernel's shared-memory load instructions in cuobjdump
               -sass of it (those of
               K1, K2, K3 and K4 are their scan loops', one triangle per
               iteration: 10 LDS.128 in each copy of the loop the compiler
               emitted, and no narrower load, or the phase fails); K1's
               registers and spills as ptxas printed them; K6 and K7 (the
-              shading) read no shared memory
+              shading) read no shared memory, nor do K8-K10 (the key, the
+              deal, the superchunk boxes); K11 and K12 (the schedule and
+              the tile order) do, at any width
   3. kernels  the hand kernels against their plain PyTorch versions on
               the card: Cornell camera and first-bounce rays at 512x512,
               a 1,100-triangle 5-chunk random scene with on-plane
@@ -77,6 +80,19 @@ any failure exits non-zero:
               launch alone, beside the plain version and the bound of the
               bytes its operands move: the ms, alone_ms, plain_ms and
               bound_ms of the kernels line
+  6b. prep    the sorted query's preparation (csrc/prep.cu: K8 the key,
+              K9 the deal and gather, K10 the superchunk boxes, K11 the
+              per-tile schedule, K12 the tile order) at the pool's
+              shapes: SPD tetra at size factor 8 (1,025 chunks, g = 17),
+              the closest and any-hit queries pool iteration 1 of a
+              2-spp 512x512 render hands the queries (524,288 and
+              1,048,576 lanes); the render's launches of each kernel, no
+              plain call and query.prep.kernel = the queries' lanes;
+              every output against the plain version run on the card,
+              bit for bit; each kernel's launch alone beside its plain
+              version and its bound, and the whole preparation as a
+              query runs it (wrapper, the sort alone, plain): the
+              kernels line's K8-K12
   7. bigscene the big-scene path on subdivisions of the Cornell box
               (the same surfaces and materials), run as: the render and
               its breakdown (timed), the checks that time nothing (beside
@@ -277,6 +293,11 @@ VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
 EXACT = "closest_hit_exact"   # the yardstick, never on the path
 SHADE_KERNELS = ("shade_prepare", "shade_finish")   # K6, K7 (csrc/shade.cu)
+# K8-K12, the sorted query's preparation (csrc/prep.cu; ops/intersect_kernel
+# PREP_KERNELS), and those of them that read no shared memory
+PREP_KERNELS = ("lane_key", "lane_deal", "superchunk", "schedule",
+                "heavy_first")
+PREP_NO_SHARED = ("lane_key", "lane_deal", "superchunk")
 REPLACES = {
     "closest_hit": "tracer_tpu/ops/pallas/intersect_kernel.py:429",
     EXACT: "tracer_tpu/ops/pallas/intersect_kernel.py:429",
@@ -289,6 +310,16 @@ REPLACES = {
                      "(XLA-fused)",
     "shade_finish": "tracer_tpu/engine/direct.py:144 (estimate_direct, after "
                     "its query), :242 (XLA-fused)",
+    # no TPU kernel: XLA fuses the sorted query's preparation
+    "lane_key": "tracer_tpu/ops/intersect.py:321 (_perm_key, XLA-fused)",
+    "lane_deal": "tracer_tpu/ops/intersect.py:262-406 (the boundary "
+                 "permutation's gather, XLA)",
+    "superchunk": "tracer_tpu/ops/pallas/intersect_kernel.py:309 "
+                  "(_superchunk_bounds, XLA)",
+    "schedule": "tracer_tpu/ops/pallas/intersect_kernel.py:329 "
+                "(_tile_chunk_order, XLA)",
+    "heavy_first": "none: the port's own tile order "
+                   "(ops/intersect_kernel.heavy_first)",
 }
 # Published H100 SXM rates (NVIDIA's data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -465,7 +496,7 @@ def shared_loads(path):
         if m:
             cur = next((f"{k}_kernel"
                         for k in VARIANTS + (EXACT, "approx_reciprocal")
-                        + SHADE_KERNELS
+                        + SHADE_KERNELS + PREP_KERNELS
                         if f"{k}_kernel" in m.group(1)), m.group(1))
             flags = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
             if cur.startswith("shade_prepare") and flags:
@@ -489,11 +520,22 @@ def check_wide_loads(loads):
     in their scan loop, one triangle per iteration: 10 LDS.128 in each
     copy of the loop, and no narrower load. The exact kernel (row-major
     stage, 64-bit loads) and K5 are not held to it; K6 and K7 (the
-    shading, one thread a lane) read no shared memory."""
+    shading, one thread a lane) read no shared memory. Of the
+    preparation's kernels (K8-K12) the key, the deal and the superchunk
+    boxes read none; the schedule reads its tile's boxes, warp minima and
+    keys, and the tile order its histogram and tallies, at whatever width
+    the compiler chose (logged)."""
     for k, c in loads.items():
-        if k.startswith(SHADE_KERNELS):
+        if k.startswith(SHADE_KERNELS + tuple(
+                f"{p}_kernel" for p in PREP_NO_SHARED)):
             if c:
                 raise AssertionError(f"{k} reads shared memory: {c}")
+            continue
+        if k.startswith(("schedule_kernel", "heavy_first_kernel")):
+            log("build", f"{k}: shared loads {c}")
+            if not c:
+                raise AssertionError(f"{k} reads no shared memory: the "
+                                     f"build is not the source's")
             continue
         if k.startswith((f"{EXACT}_kernel", "approx_reciprocal")):
             continue
@@ -1137,6 +1179,188 @@ def phase_shade(T, integrator, scene_arrays, card, device):
             del got, want
         del prep_calls, fin_calls, args, fin, what, s
         torch.cuda.empty_cache()
+    return out
+
+
+# bytes a lane of the key and the deal kernels moves: the features and
+# tmax in, the key out; the sorted index, the features and tmax in, the
+# dealt index, the features and tmax out
+KEY_BYTES, DEAL_BYTES = 6 * 4 + 4 + 4, 8 + 40 + 4 + 8 + 40 + 4
+SLAB_FLOPS = 30   # a lane's slab test of one box (3 axes of 10)
+
+
+def prep_plain(intersect, ik, dense, phi, tmax, mode, dead_first, name):
+    """The plain preparation of a sorted query on the card: lane_order,
+    the gathers, walk_schedule at the kernel's tile and heavy_first."""
+    idx = intersect.lane_order(phi, tmax, dense.chunk_bounds, mode,
+                               dead_first=dead_first)
+    phi_s, tmax_s = phi[:, idx], tmax[idx]
+    _, sb, order, count = ik.walk_schedule(phi_s, tmax_s, dense.chunk_bounds,
+                                           ik.MAX_SCHED, ik.BLOCKS[name])
+    return idx, phi_s, tmax_s, sb, order, count, ik.heavy_first(count)
+
+
+def phase_prep(T, ik, intersect, card, device):
+    """The sorted query's preparation (csrc/prep.cu, K8-K12) at the pool's
+    shapes: SPD tetra at size factor 8 (portbench/scenes/spd_tetra.py,
+    262,146 triangles, 1,025 chunks, g = 17 over 61 superchunks), the
+    closest and any-hit queries pool iteration POOL_TIMED of a 2-spp
+    512x512 render hands closest_hit_phi / any_hit_phi (524,288 and
+    1,048,576 lanes). Every kernel's output against its plain version run
+    on the card, bit for bit; then timed: the wrapper (key, sort, deal,
+    schedule and tile order, as a query runs them), each kernel's launch
+    alone on the wrapper's own operands, the sort, the plain version, and
+    each kernel's bound (bytes or slab-test operations). Returns name ->
+    fields of the kernels line (the any-hit query's under any_*)."""
+    import torch
+    from portbench.scenes import spd_tetra
+    from tracer_tpu_torch.utils import profiling
+    tris, tm, mats = spd_tetra.build()
+    s = T.init(17, SIZE, SIZE, 0, tris, tm, mats,
+               cam_origin=spd_tetra.CAMERA_ORIGIN, device=device)
+    dense = s.scene.accel
+    cb = dense.chunk_bounds
+    queries = {"closest": [], "any": []}
+    ik.reset_counts()
+    profiling.reset()   # the counters of earlier phases
+    with tap_call(intersect, "closest_hit_phi", POOL_TIMED,
+                  queries["closest"]), \
+            tap_call(intersect, "any_hit_phi", POOL_TIMED, queries["any"]):
+        with profiling.tracing():
+            T.sample_n_frames(s, 3)   # 2 spp
+    torch.cuda.synchronize()
+    c = profiling.counters()
+    profiling.reset()
+    launches = dict(ik.prep_launches)
+    log("prep", f"2-spp render of SPD tetra ({cb.shape[0]} chunks): prep "
+        f"launches {launches}, plain calls {dict(ik.prep_plain_calls)}; "
+        f"query.prep.kernel {c.get('query.prep.kernel', 0)}, "
+        f"query.prep.plain {c.get('query.prep.plain', 0)}, "
+        f"query.lanes {({k: v for k, v in c.items() if 'lanes.' in k})}")
+    sorted_lanes = sum(v for k, v in c.items()
+                       if k.startswith("query.lanes."))
+    if (min(launches.values()) <= 0 or sum(ik.prep_plain_calls.values())
+            or c.get("query.prep.kernel") != sorted_lanes
+            or "query.prep.plain" in c):
+        raise AssertionError("the preparation did not run on its kernels "
+                             "alone")
+    out = {k: {"launches": launches[k]} for k in ik.PREP_KERNELS}
+    summary = {}
+    for q, calls in queries.items():
+        (args, _, _), = calls
+        _, tmax, phi = args
+        name = ik.variant_name(q, ik.streamed_variant(dense.coeffs.shape[1]))
+        dead_first = q == "any" or tmax.dim() > 0
+        n = phi.shape[1]
+        tmax = tmax.expand(n)
+        tag = "" if q == "closest" else "any_"
+        # bit for bit against the plain version on the card
+        key, n_dead = torch.ops.tracer_tpu_torch.lane_key(
+            phi, tmax, dense.scene_box, "odmorton", dead_first)
+        idx = torch.sort(key, stable=True).indices
+        order, phi_s, tmax_s = torch.ops.tracer_tpu_torch.lane_deal(
+            idx, n_dead, phi, tmax,
+            intersect.SPREAD_WARPS if dead_first else 0)
+        g, sb, sched, count, tiles = ik.walk_operands(name, phi_s, tmax_s,
+                                                      cb)
+        want = prep_plain(intersect, ik, dense, phi, tmax, "odmorton",
+                          dead_first, name)
+        want_key = intersect.perm_key(phi, cb, "odmorton")
+        if dead_first:
+            want_key = torch.where(tmax > 0, want_key, -1)
+        torch.cuda.synchronize()
+        pairs = {"key": (key, want_key), "order": (order, want[0]),
+                 "phi": (phi_s.view(torch.int32), want[1].view(torch.int32)),
+                 "tmax": (tmax_s.view(torch.int32),
+                          want[2].view(torch.int32)),
+                 "sbounds": (sb, want[3]), "schedule": (sched, want[4]),
+                 "count": (count, want[5]), "tiles": (tiles, want[6])}
+        unequal = {k: int((a != b).sum()) if a.shape == b.shape else -1
+                   for k, (a, b) in pairs.items()}
+        dead = int((~(tmax > 0)).sum())
+        log("prep", f"{q} query of pool iteration {POOL_TIMED} ({n} lanes, "
+            f"{dead} dead, g = {g}, {sb.shape[0]} superchunks, "
+            f"{count.shape[0]} tiles of {ik.BLOCKS[name]}, "
+            f"{float(count.float().mean()):.2f} entries a tile): n_dead "
+            f"{int(n_dead)}; values not equal bit for bit to the plain "
+            f"version {unequal}")
+        if any(unequal.values()) or int(n_dead) != (dead if dead_first
+                                                    else 0):
+            raise AssertionError(f"the {q} query's preparation differs "
+                                 f"from its plain version")
+        # timings: the wrapper as a query runs it; each launch alone on
+        # the wrapper's operands (outputs written again in place)
+        spread = intersect.SPREAD_WARPS if dead_first else 0
+        dev = phi.device
+
+        def wrapper():
+            _, p_s, t_s = intersect.sorted_lanes(dense, phi, tmax,
+                                                 "odmorton", dead_first)
+            return ik.walk_operands(name, p_s, t_s, cb)
+
+        n_box, tile = sb.shape[0], ik.BLOCKS[name]
+        alone = {
+            "lane_key": lambda: ik.prep_launch(
+                "lane_key", dev, phi, *phi.stride(), tmax, tmax.stride(0),
+                dense.scene_box, n, 2, int(dead_first), key, n_dead),
+            "lane_deal": lambda: ik.prep_launch(
+                "lane_deal", dev, idx, n_dead, phi, *phi.stride(), tmax,
+                tmax.stride(0), n, spread, order, phi_s, tmax_s),
+            "superchunk": lambda: ik.prep_launch(
+                "superchunk", dev, cb, cb.shape[0], g, n_box, sb),
+            "schedule": lambda: ik.prep_launch(
+                "schedule", dev, phi_s, *phi_s.stride(), tmax_s,
+                tmax_s.stride(0), n, tile, sb, n_box, ik.FAR_SCALE, sched,
+                count),
+            "heavy_first": lambda: ik.prep_launch(
+                "heavy_first", dev, count, count.shape[0], n_box, tiles)}
+        plain = {
+            "lane_key": lambda: torch.where(
+                tmax > 0, intersect.perm_key(phi, cb, "odmorton"), -1),
+            "lane_deal": lambda: (lambda i: (phi[:, i], tmax[i]))(
+                intersect._deal(idx, n - (tmax > 0).sum(), spread)),
+            "superchunk": lambda: ik.superchunk_bounds(cb, g),
+            "schedule": lambda: ik.tile_chunk_order(phi_s, tmax_s, sb, tile),
+            "heavy_first": lambda: ik.heavy_first(count)}
+        n_tiles = count.shape[0]
+        bounds = {
+            "lane_key": bound(KEY_BYTES * n, 0),
+            "lane_deal": bound(DEAL_BYTES * n, 0),
+            "superchunk": bound(4 * (cb.numel() + sb.numel()), 0),
+            "schedule": bound(28 * n + 4 * n_tiles * (n_box + 1),
+                              SLAB_FLOPS * n * n_box),
+            "heavy_first": bound(8 * n_tiles, 0)}
+        at = (f"pool iteration {POOL_TIMED} of a 2-spp {SIZE}x{SIZE} SPD "
+              f"tetra render, {q} query, {n} lanes")
+        for k in ik.PREP_KERNELS:
+            t = {"alone_ms": ms_per_call(alone[k]),
+                 "plain_ms": ms_per_call(plain[k], calls=5, rounds=3),
+                 "timed_at": at}
+            t["bound_ms"], t["bound_by"] = bounds[k]
+            out[k].update({f"{tag}{f}": v for f, v in t.items()})
+            log("prep", f"time {k} ({q}): alone {t['alone_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+                f"ms ({t['bound_by']}), share of the bound alone "
+                f"{100 * t['bound_ms'] / t['alone_ms']:.1f}%")
+        whole = {"ms": ms_per_call(wrapper),
+                 "sort_ms": ms_per_call(
+                     lambda: torch.sort(key, stable=True)),
+                 "plain_ms": ms_per_call(
+                     lambda: prep_plain(intersect, ik, dense, phi, tmax,
+                                        "odmorton", dead_first, name),
+                     calls=3, rounds=3)}
+        summary[q] = whole
+        log("prep", f"time the {q} query's preparation ({n} lanes): "
+            f"wrapper {whole['ms']:.4f} ms (the sort alone "
+            f"{whole['sort_ms']:.4f}), plain {whole['plain_ms']:.4f} ms "
+            f"(median of {TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back "
+            f"calls, on {card})")
+        for k in ik.PREP_KERNELS:
+            out[k][f"{tag}prep_ms"] = whole["ms"]
+            out[k][f"{tag}prep_plain_ms"] = whole["plain_ms"]
+        del key, idx, order, phi_s, tmax_s, sched, count, tiles, want
+    del s, dense, queries
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2668,6 +2892,8 @@ def main():
     torch.cuda.empty_cache()
     shade_times = phase_shade(T, integrator, scene_arrays, card, device)
     clock("shade")
+    prep_times = phase_prep(T, ik, intersect, card, device)
+    clock("prep")
     # phase aot's exports run beside the checks that time nothing: the
     # big-scene checks and the checkpoint phase
     aot = []
@@ -2739,6 +2965,12 @@ def main():
                  "source": "tracer_tpu_torch/csrc/shade.cu",
                  "replaces": REPLACES[k], "launches": launches[k],
                  **shade_times[k]} for k in SHADE_KERNELS]
+    # K8-K12: launches of phase prep's render, the rest at the operands of
+    # its pool (any_*: the any-hit query's)
+    kernels += [{"name": f"{k}_kernel", "route": "cuda",
+                 "source": "tracer_tpu_torch/csrc/prep.cu",
+                 "replaces": REPLACES[k], **prep_times[k]}
+                for k in PREP_KERNELS]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was not launched")
     log("result", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")

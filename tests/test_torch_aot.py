@@ -273,6 +273,30 @@ def test_exported_step_holds_the_shade_ops(artifact):
         assert f"tracer_tpu_torch.{op}.default" in targets, op
 
 
+def test_exported_step_holds_the_prep_ops(monkeypatch):
+    """With every query sorted (resolve_perm forced to odmorton, as "auto"
+    does on a card over enough chunks), the exported step of a 3-chunk
+    scene holds the sorted query's preparation, the ops
+    tracer_tpu_torch::lane_key and lane_deal around aten's stable sort,
+    and steps bit for bit as api.step does under the same sort."""
+    monkeypatch.setattr(tisect, "resolve_perm", lambda *a, **k: "odmorton")
+    tris, tm, mats = testscenes.cornell_like()
+    tris, tm = testscenes.subdivide(tris, tm, levels=2)
+    s = _accumulating(5, 0, "auto", scene=(tris, tm, mats))
+    assert s.scene.accel.chunk_bounds.shape[0] == 3
+    step = aot.load(aot.export_step(s))
+    targets = {str(node.target) for m in step.program.modules()
+               if isinstance(m, torch.fx.GraphModule)
+               for node in m.graph.nodes if node.op == "call_function"}
+    for op in ("tracer_tpu_torch.lane_key.default",
+               "tracer_tpu_torch.lane_deal.default", "aten.sort.stable"):
+        assert op in targets, op
+    ik.reset_counts()
+    _steps_equal(step, s, n=2)
+    assert ik.prep_plain_calls["lane_key"] == ik.prep_plain_calls[
+        "lane_deal"] > 0
+
+
 def test_custom_ops_fake_shapes_and_cpu_plain():
     """tracer_tpu_torch::closest_hit / any_hit: their fake rules give
     (N,) f32, (N,) int32 and (N,) bool on phi's device; on the CPU they

@@ -294,6 +294,54 @@ def test_query_sort_span_once_per_sorted_query(perm):
     assert sorts == (0 if perm == "off" else 2)
 
 
+@pytest.mark.parametrize("perm", ["odmorton", "dmorton"])
+def test_prep_counters_and_spans_of_the_sorted_queries(perm):
+    """query.prep.plain counts the lanes of each sorted query whose
+    preparation the plain version did (every one on the CPU), and
+    query.prep.kernel none; query.sort wraps each sorted query once, an
+    unsorted one not; query.schedule wraps each schedule walk_operands
+    builds (inside a query on the card only: on the CPU the ops' plain
+    version builds none)."""
+    tris, tm = testscenes.subdivide(*testscenes.cornell_like()[:2],
+                                    levels=2)
+    dense = intersect.build_dense(torch.as_tensor(tris))
+    assert dense.chunk_bounds.shape[0] > 1
+    origin, d, tmax = _rays(300)
+    with profiling.tracing():
+        intersect.closest_hit(dense, tmax, origin, d, perm=perm)
+        intersect.any_hit(dense, tmax, origin, d, perm=perm)
+        intersect.closest_hit(dense, tmax, origin, d, perm="off")
+        summ, c = profiling.summary(), profiling.counters()
+        assert c["query.prep.plain"] == 600
+        assert "query.prep.kernel" not in c
+        assert summ["query.sort"]["count"] == 2
+        assert "query.schedule" not in summ
+        ik.walk_operands("closest_hit", intersect.ray_features_t(origin, d),
+                         tmax, dense.chunk_bounds)
+    assert profiling.summary()["query.schedule"]["count"] == 1
+
+
+def test_prep_counter_over_a_pooled_render(monkeypatch):
+    """With every query sorted (resolve_perm forced to odmorton, as "auto"
+    does on a card), query.prep.plain over a pooled render equals the
+    lanes the queries hand the kernel wrappers (query.lanes.*), and the
+    render's bits are those of the unsorted render's (the box's one chunk
+    has no cross-chunk tie)."""
+    s = _state(0)
+    want = _pooled(s, 3)
+    monkeypatch.setattr(intersect, "resolve_perm",
+                        lambda *a, **k: "odmorton")
+    with profiling.tracing():
+        got = _pooled(s, 3)
+    c = profiling.counters()
+    lanes = sum(v for k, v in c.items() if k.startswith("query.lanes."))
+    assert c["query.prep.plain"] == lanes > 0
+    assert "query.prep.kernel" not in c
+    assert profiling.summary()["query.sort"]["count"] == 2 * got["iters"]
+    for k in ("img", "rays_traced", "iters"):
+        assert torch.equal(torch.as_tensor(got[k]), torch.as_tensor(want[k]))
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 def test_query_lanes_count_the_lanes_handed_to_the_kernels(streamed,
                                                           monkeypatch):

@@ -1,7 +1,8 @@
 """Build and load the hand-written kernels of csrc/ as one shared library.
 
 Every CUDA source under csrc/ (intersect.cu: K1-K4 and their exact
-yardstick, recip.cu: K5, shade.cu: K6-K7) goes to
+yardstick, recip.cu: K5, shade.cu: K6-K7, prep.cu: K8-K12, a sorted
+query's preparation) goes to
 one nvcc call, at first use, into build/tracer_tpu_torch/ beside the
 package, keyed on a hash of the flags and of every source; the library
 is loaded with ctypes and each kernel's wrapper module declares the

@@ -13,7 +13,13 @@ Boundary ray permutation (tracer_tpu/ops/intersect.py:262-406): at the
 query boundary only, the lanes may be sorted by a coherence key
 (perm_key) so that each CUDA block's rays are alike and its chunk
 schedule culls; the kernel runs on the sorted lanes and its results are
-scattered back to the caller's order. Lane state never moves. perm="auto"
+scattered back to the caller's order. Lane state never moves. The
+sorted lanes (sorted_lanes) come from the custom ops
+tracer_tpu_torch::lane_key and lane_deal around one stable torch.sort:
+on the CPU the plain version (perm_key, lane_order), on the card
+csrc/prep.cu's key and deal kernels, bit for bit the same lanes with no
+host read; the scene box of the odmorton key is DenseTris.scene_box,
+derived once from the chunk boxes. perm="auto"
 sorts on a CUDA tensor at PERM_AUTO_MIN_CHUNKS (closest) or
 PERM_ANY_AUTO_MIN_CHUNKS (any hit) chunks and never on the CPU, as the
 TPU package sorts only for its Pallas kernels; "off" never sorts; a key
@@ -86,6 +92,9 @@ class DenseTris(nn.Module):
         self.register_buffer("tris", tris)
         self.register_buffer("perm", perm)
         self.register_buffer("chunk_bounds", chunk_bounds)
+        # (6,) the key's scene box, derived once (not checkpointed)
+        self.register_buffer("scene_box", scene_box(chunk_bounds),
+                             persistent=False)
 
 
 def default_pad(n_tris: int) -> int:
@@ -198,18 +207,23 @@ def _morton3(x, y, z, lo, hi, bits: int):
             | _spread3(_quant_i(z, lo[2], hi[2], bits), bits))
 
 
-def perm_key(phi, chunk_bounds, mode: str):
-    """Coherence sort key (N,) int32 of the ray features (10, N), bit for
-    bit tracer_tpu's _perm_key:
-      oct       3-bit direction octant
-      dmorton   30-bit morton code of the direction on [-1, 1]^3
-      odmorton  15-bit morton code of the origin on the scene's box (the
-                union of the non-empty chunk boxes) over a 15-bit one of
-                the direction.
-    Unknown modes raise ValueError."""
+def scene_box(chunk_bounds):
+    """The scene's box, the union of the non-empty chunk boxes: (6,) [min
+    xyz, max xyz] (+inf / -inf where every chunk is empty)."""
+    finite = (chunk_bounds[:, 0] <= chunk_bounds[:, 3])[:, None]
+    lo = torch.where(finite, chunk_bounds[:, 0:3], float("inf")).amin(dim=0)
+    hi = torch.where(finite, chunk_bounds[:, 3:6], -float("inf")).amax(dim=0)
+    return torch.cat([lo, hi])
+
+
+def _check_mode(mode: str) -> None:
     if mode not in PERM_KEYS:
         raise ValueError(f"unknown permutation key {mode!r}; expected one "
                          f"of {PERM_KEYS}")
+
+
+def _box_key(phi, box, mode: str):
+    """perm_key on the scene box (6,) of scene_box."""
     d0, o0 = phi[0:3], phi[3:6]
     if mode == "oct":
         return ((d0[0] >= 0).to(torch.int32) * 4
@@ -219,12 +233,22 @@ def perm_key(phi, chunk_bounds, mode: str):
     unit_hi = torch.full((3,), 1.0, device=phi.device)
     if mode == "dmorton":
         return _morton3(d0[0], d0[1], d0[2], unit_lo, unit_hi, 10)
-    finite = (chunk_bounds[:, 0] <= chunk_bounds[:, 3])[:, None]
-    lo = torch.where(finite, chunk_bounds[:, 0:3], float("inf")).amin(dim=0)
-    hi = torch.where(finite, chunk_bounds[:, 3:6], -float("inf")).amax(dim=0)
-    om = _morton3(o0[0], o0[1], o0[2], lo, hi, 5)
+    om = _morton3(o0[0], o0[1], o0[2], box[0:3], box[3:6], 5)
     dm = _morton3(d0[0], d0[1], d0[2], unit_lo, unit_hi, 5)
     return (om << 15) | dm
+
+
+def perm_key(phi, chunk_bounds, mode: str):
+    """Coherence sort key (N,) int32 of the ray features (10, N), bit for
+    bit tracer_tpu's _perm_key:
+      oct       3-bit direction octant
+      dmorton   30-bit morton code of the direction on [-1, 1]^3
+      odmorton  15-bit morton code of the origin on the scene's box (the
+                union of the non-empty chunk boxes) over a 15-bit one of
+                the direction.
+    Unknown modes raise ValueError."""
+    _check_mode(mode)
+    return _box_key(phi, scene_box(chunk_bounds), mode)
 
 
 def resolve_perm(perm: str, n_chunks: int, device, any_hit: bool = False):
@@ -261,13 +285,18 @@ def lane_order(phi, tmax, chunk_bounds, mode: str, dead_first: bool = False):
         return torch.sort(key, stable=True).indices
     live = tmax > 0.0
     idx = torch.sort(torch.where(live, key, -1), stable=True).indices
-    if not SPREAD_WARPS:
+    return _deal(idx, phi.shape[1] - live.sum(), SPREAD_WARPS)
+
+
+def _deal(idx, n_dead, spread: int):
+    """lane_order's deal of the lanes idx, sorted dead first, n_dead (a
+    0-d int64 tensor) of them dead, over `spread` warps (0: as they are)."""
+    if not spread:
         return idx
-    n = phi.shape[1]
-    n_live = live.sum()
-    n_dead = n - n_live
-    k = torch.clamp((n_live + SPREAD_WARPS - 1) // SPREAD_WARPS, 1, 32)
-    rank = torch.arange(n, device=phi.device)
+    n = idx.shape[0]
+    n_live = n - n_dead
+    k = torch.clamp((n_live + spread - 1) // spread, 1, 32)
+    rank = torch.arange(n, device=idx.device)
     j = rank - n_dead                     # live rank of the sorted lanes
     # dead rank r sorts at 2r + 1, the live lanes of warp w before the
     # dead lane that is the w * (32 - k)-th: 32 - k dead lanes pad each
@@ -276,6 +305,116 @@ def lane_order(phi, tmax, chunk_bounds, mode: str, dead_first: bool = False):
                          torch.div(j, k, rounding_mode="floor") * (32 - k))
     slot = torch.where(j >= 0, 2 * before, 2 * rank + 1)
     return idx[torch.sort(slot, stable=True).indices]
+
+
+# ---------------------------------------------------------------------------
+# The sorted query's preparation as the custom ops tracer_tpu_torch::lane_key
+# and tracer_tpu_torch::lane_deal: the CPU implementation is the plain
+# version above, the CUDA one csrc/prep.cu's lane_key_kernel and
+# lane_deal_kernel (bit for bit the plain version's, no host read); no
+# device falls back. Between them the stable sort of the keys stays one
+# torch.sort. The fake rules give torch.export the shapes, so an exported
+# step holds both ops. Each sorted query adds its lanes to the counter
+# query.prep.kernel (the kernels did its preparation) or query.prep.plain.
+
+_KEY_SCHEMA = ("(Tensor phi, Tensor tmax, Tensor box, str mode, "
+               "bool dead_first) -> (Tensor, Tensor)")
+_DEAL_SCHEMA = ("(Tensor idx, Tensor n_dead, Tensor phi, Tensor tmax, "
+                "int spread) -> (Tensor, Tensor, Tensor)")
+
+
+@torch.library.custom_op("tracer_tpu_torch::lane_key", mutates_args=(),
+                         device_types="cpu", schema=_KEY_SCHEMA)
+def _lane_key_op(phi, tmax, box, mode, dead_first):
+    _check_mode(mode)
+    ik.prep_plain_calls["lane_key"] += 1
+    profiling.count("query.prep.plain", phi.shape[1])
+    key = _box_key(phi, box, mode)
+    if not dead_first:
+        return key, torch.zeros((1,), dtype=torch.int32)
+    live = tmax > 0.0
+    n_dead = phi.shape[1] - live.sum(dtype=torch.int32)
+    return torch.where(live, key, -1), n_dead.reshape(1)
+
+
+@_lane_key_op.register_kernel("cuda")
+def _lane_key_cuda(phi, tmax, box, mode, dead_first):
+    _check_mode(mode)
+    key, n_dead = _lane_key_fake(phi, tmax, box, mode, dead_first)
+    n = phi.shape[1]
+    _prep_operands(phi, (tmax, box), ((n,), (6,)))
+    ik.prep_launch("lane_key", phi.device, phi, *phi.stride(), tmax,
+                   tmax.stride(0), box.contiguous(), n, PERM_KEYS.index(mode),
+                   int(dead_first), key, n_dead)
+    profiling.count("query.prep.kernel", n)
+    return key, n_dead
+
+
+@_lane_key_op.register_fake
+def _lane_key_fake(phi, tmax, box, mode, dead_first):
+    return (phi.new_empty((phi.shape[1],), dtype=torch.int32),
+            phi.new_empty((1,), dtype=torch.int32))
+
+
+@torch.library.custom_op("tracer_tpu_torch::lane_deal", mutates_args=(),
+                         device_types="cpu", schema=_DEAL_SCHEMA)
+def _lane_deal_op(idx, n_dead, phi, tmax, spread):
+    ik.prep_plain_calls["lane_deal"] += 1
+    order = _deal(idx, n_dead[0].long(), spread)
+    if order is idx:   # an op's output may not alias its input
+        order = idx.clone()
+    return order, phi[:, order], tmax[order]
+
+
+@_lane_deal_op.register_kernel("cuda")
+def _lane_deal_cuda(idx, n_dead, phi, tmax, spread):
+    order, phi_s, tmax_s = _lane_deal_fake(idx, n_dead, phi, tmax, spread)
+    n = phi.shape[1]
+    _prep_operands(phi, (tmax,), ((n,),))
+    if (idx.dtype != torch.int64 or n_dead.dtype != torch.int32
+            or idx.shape != (n,) or n_dead.shape != (1,)
+            or not idx.is_contiguous()):
+        raise ValueError("idx is a contiguous (N,) int64 and n_dead a (1,) "
+                         "int32 tensor")
+    ik.prep_launch("lane_deal", phi.device, idx, n_dead, phi, *phi.stride(),
+                   tmax, tmax.stride(0), n, spread, order, phi_s, tmax_s)
+    return order, phi_s, tmax_s
+
+
+@_lane_deal_op.register_fake
+def _lane_deal_fake(idx, n_dead, phi, tmax, spread):
+    n = phi.shape[1]
+    return (idx.new_empty((n,)), phi.new_empty((10, n)),
+            phi.new_empty((n,)))
+
+
+def _prep_operands(phi, others, shapes_) -> None:
+    """phi (10, N) and each of `others` of its shape: f32 on phi's
+    device."""
+    if phi.dim() != 2 or phi.shape[0] != 10:
+        raise ValueError(f"phi must be (10, N), got {tuple(phi.shape)}")
+    for x, shape in ((phi, phi.shape), *zip(others, shapes_)):
+        if (x.dtype != torch.float32 or x.device != phi.device
+                or x.shape != shape):
+            raise ValueError(f"operand of {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}, want {tuple(shape)} float32 on "
+                             f"{phi.device}")
+    if phi.shape[1] >= 2 ** 31:
+        raise ValueError("too many rays for int32 lane ids")
+
+
+def sorted_lanes(dense: DenseTris, phi, tmax, mode: str, dead_first: bool):
+    """A sorted query's lanes: (order, phi[:, order], tmax[order]) with
+    order = lane_order(phi, tmax, dense.chunk_bounds, mode, dead_first),
+    through the ops lane_key and lane_deal around a stable torch.sort;
+    tmax a scalar or (N,)."""
+    n = phi.shape[1]
+    tmax = tmax.expand(n)
+    key, n_dead = torch.ops.tracer_tpu_torch.lane_key(
+        phi, tmax, dense.scene_box, mode, dead_first)
+    idx = torch.sort(key, stable=True).indices
+    return torch.ops.tracer_tpu_torch.lane_deal(
+        idx, n_dead, phi, tmax, SPREAD_WARPS if dead_first else 0)
 
 
 def closest_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
@@ -295,10 +434,8 @@ def closest_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
         return ik.closest_hit(dense.coeffs, phi, tmax, dense.chunk_bounds,
                               **kw)
     with profiling.span("query.sort"):
-        idx = lane_order(phi, tmax, dense.chunk_bounds, mode,
-                         dead_first=per_lane)
-        bt_s, bi_s = ik.closest_hit(dense.coeffs, phi[:, idx],
-                                    tmax[idx] if per_lane else tmax,
+        idx, phi_s, tmax_s = sorted_lanes(dense, phi, tmax, mode, per_lane)
+        bt_s, bi_s = ik.closest_hit(dense.coeffs, phi_s, tmax_s,
                                     dense.chunk_bounds, **kw)
         best_t, best_i = torch.empty_like(bt_s), torch.empty_like(bi_s)
         best_t[idx] = bt_s
@@ -321,10 +458,9 @@ def any_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
     if mode is None:
         return ik.any_hit(dense.coeffs, phi, tmax, dense.chunk_bounds, **kw)
     with profiling.span("query.sort"):
-        idx = lane_order(phi, tmax, dense.chunk_bounds, mode,
-                         dead_first=True)
-        hit_s = ik.any_hit(dense.coeffs, phi[:, idx], tmax[idx],
-                           dense.chunk_bounds, **kw)
+        idx, phi_s, tmax_s = sorted_lanes(dense, phi, tmax, mode, True)
+        hit_s = ik.any_hit(dense.coeffs, phi_s, tmax_s, dense.chunk_bounds,
+                           **kw)
         hit = torch.empty_like(hit_s)
         hit[idx] = hit_s
     return hit

@@ -25,9 +25,11 @@ variant's lanes (BLOCKS). A one-chunk scene gets no schedule and the
 kernel walks its chunk under the cull. The schedule only skips chunks no
 lane can reach, so every variant gives the plain version's hits and best
 t (ties in t may pick another index). All four work their tiles in the
-order of heavy_first, the longest schedules first. A lane with tmax <= 0
-or a NaN operand takes no part in a walk and misses, (+inf, 0) or False,
-as the plain versions give it (t < tmax fails).
+order of heavy_first, the longest schedules first. On the card the
+schedule, its superchunk boxes and the tile order are kernels of
+csrc/prep.cu (walk_operands), bit for bit these plain versions. A lane
+with tmax <= 0 or a NaN operand takes no part in a walk and misses,
+(+inf, 0) or False, as the plain versions give it (t < tmax fails).
 
   closest_hit_exact(coeffs, phi, tmax, chunk_bounds) -> (best_t, best_i)
       the yardstick (closest_hit_exact_kernel): closest_hit by the plainest
@@ -103,12 +105,25 @@ _BLOCK_FNS = dict(zip(KERNELS, ("kernel_block", "streamed_closest_block",
                                 "exact_block")))
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
+# The kernels of a sorted query's preparation (csrc/prep.cu): the key, the
+# deal and gather (ops/intersect.py, the ops lane_key and lane_deal), the
+# superchunk boxes, the schedule and the tile order (walk_operands). Each
+# launch adds one to prep_launches; each call of a plain version where a
+# wrapper dispatches (the ops on the CPU, walk_operands off the card) one
+# to prep_plain_calls.
+PREP_KERNELS = ("lane_key", "lane_deal", "superchunk", "schedule",
+                "heavy_first")
+prep_launches = {k: 0 for k in PREP_KERNELS}
+prep_plain_calls = {k: 0 for k in PREP_KERNELS}
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         launches[k] = 0
         plain_calls[k] = 0
+    for k in PREP_KERNELS:
+        prep_launches[k] = 0
+        prep_plain_calls[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +150,25 @@ def build() -> ctypes.CDLL:
         entry.restype = ctypes.c_int
     lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
     lib.any_hit_launch.restype = ctypes.c_int
+    lib.prep_max_sched.argtypes = []
+    lib.prep_max_sched.restype = ctypes.c_int
+    if lib.prep_max_sched() != MAX_SCHED:
+        raise RuntimeError(f"csrc/prep.cu takes {lib.prep_max_sched()} "
+                           f"schedule entries, the wrapper {MAX_SCHED}")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, args in _PREP_ARGS.items():
+        entry = getattr(lib, f"{name}_launch")
+        entry.argtypes = [{"p": p, "i": i, "l": ll, "f": ctypes.c_float}[a]
+                          for a in args] + [p]
+        entry.restype = ctypes.c_int
     return lib
+
+
+# The arguments of each csrc/prep.cu entry point before its stream: p a
+# pointer, l an int64 stride, i an int, f a float.
+_PREP_ARGS = {"lane_key": "pllplpiiipp", "lane_deal": "pppllpliippp",
+              "superchunk": "piiip", "schedule": "pllpliipifpp",
+              "heavy_first": "piip"}
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +422,71 @@ def variant_name(query: str, streamed: bool) -> str:
     return f"{query}_hit_streamed" if streamed else f"{query}_hit"
 
 
+# ---------------------------------------------------------------------------
+# The preparation's kernels (csrc/prep.cu)
+
+# _tile_entry's far-plane scale, f32(1 + AABB_EPS) as PyTorch rounds the
+# python scalar it multiplies by (the schedule kernel takes it)
+FAR_SCALE = torch.tensor(1.0 + shapes.AABB_EPS,
+                         dtype=torch.float32).item()
+
+
+def prep_launch(name: str, device, *args) -> None:
+    """Launch csrc/prep.cu's <name>_launch (name of PREP_KERNELS) on
+    torch's current stream of `device`: tensors go as their pointers,
+    python ints and floats as they are. Counts the launch."""
+    entry = getattr(build(), f"{name}_launch")
+    err = entry(*(x.data_ptr() if isinstance(x, torch.Tensor) else x
+                  for x in args), cuda_lib.raw_stream(device.index))
+    if err:
+        raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
+    prep_launches[name] += 1
+
+
+def heavy_first_launch(count, n_box: int):
+    """heavy_first(count) by heavy_first_kernel, for a contiguous int32
+    count of values in 0..n_box (a schedule's count) on the card."""
+    if (count.dtype != torch.int32 or count.dim() != 1
+            or not count.is_contiguous() or not 0 <= n_box <= MAX_SCHED):
+        raise ValueError("count must be a contiguous (n_tiles,) int32 "
+                         f"tensor and n_box in 0..{MAX_SCHED}")
+    tiles = torch.empty_like(count)
+    if count.numel():
+        prep_launch("heavy_first", count.device, count, count.shape[0],
+                    n_box, tiles)
+    return tiles
+
+
+def _walk_operands_cuda(name: str, phi, tmax, chunk_bounds, max_sched: int):
+    if phi.dim() != 2 or phi.shape[0] != 10:
+        raise ValueError(f"phi must be (10, N), got {tuple(phi.shape)}")
+    for label, x in (("phi", phi), ("chunk_bounds", chunk_bounds)):
+        if x.dtype != torch.float32 or x.device != phi.device:
+            raise ValueError(f"{label} must be float32 on {phi.device}")
+    dev, n = phi.device, phi.shape[1]
+    chunk_bounds = chunk_bounds.contiguous()
+    n_chunks = chunk_bounds.shape[0]
+    g = -(-n_chunks // max_sched)
+    if n_chunks == 1:
+        return g, chunk_bounds, None, None, None
+    sbounds = chunk_bounds
+    if g > 1:
+        sbounds = torch.empty((-(-n_chunks // g), 8), device=dev)
+        prep_launch("superchunk", dev, chunk_bounds, n_chunks, g,
+                    sbounds.shape[0], sbounds)
+    n_box, tile = sbounds.shape[0], BLOCKS[name]
+    order = torch.empty((-(-n // tile), n_box), dtype=torch.int32,
+                        device=dev)
+    count = torch.empty((order.shape[0],), dtype=torch.int32, device=dev)
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
+    if n:
+        prep_launch("schedule", dev, phi, *phi.stride(), tmax,
+                    tmax.stride(0), n, tile, sbounds, n_box, FAR_SCALE,
+                    order, count)
+    tiles = None if name == EXACT else heavy_first_launch(count, n_box)
+    return g, sbounds, order, count, tiles
+
+
 def walk_operands(name: str, phi, tmax, chunk_bounds,
                   max_sched: int = MAX_SCHED):
     """What the kernel `name` (of KERNELS) walks, as its launch takes it:
@@ -396,12 +494,22 @@ def walk_operands(name: str, phi, tmax, chunk_bounds,
     block of BLOCKS[name] lanes and the order in which the launch works
     its tiles, heavy_first(count). tiles is None where there is no
     schedule (a one-chunk scene) and for the yardstick, which works its
-    tiles in index order. Span query.schedule (utils/profiling)."""
+    tiles in index order. On the card csrc/prep.cu builds them
+    (superchunk_kernel at g > 1, schedule_kernel, heavy_first_kernel),
+    bit for bit the plain versions', which run on any other device. Span
+    query.schedule (utils/profiling)."""
     with profiling.span("query.schedule"):
+        if phi.device.type == "cuda":
+            return _walk_operands_cuda(name, phi, tmax, chunk_bounds,
+                                       max_sched)
         g, sbounds, order, count = walk_schedule(phi, tmax, chunk_bounds,
                                                  max_sched, BLOCKS[name])
         tiles = (None if count is None or name == EXACT
                  else heavy_first(count))
+        if count is not None:
+            prep_plain_calls["schedule"] += 1
+            prep_plain_calls["superchunk"] += g > 1
+            prep_plain_calls["heavy_first"] += tiles is not None
     return g, sbounds, order, count, tiles
 
 

@@ -7,9 +7,11 @@ serialises its jitted step with jax.export; this one captures
 engine/api.step_core with torch.export, as one program of aten ops, the
 pool's and the LBVH walk's loops as torch's while_loop, and the
 intersection kernels as the custom ops tracer_tpu_torch::closest_hit and
-tracer_tpu_torch::any_hit (ops/intersect_kernel.py), the shading around
-the shadow query as tracer_tpu_torch::shade_prepare and shade_finish
-(engine/shade.py). A fresh process loads the artifact and steps a
+tracer_tpu_torch::any_hit (ops/intersect_kernel.py), a sorted query's
+key and deal as tracer_tpu_torch::lane_key and lane_deal around aten's
+stable sort (ops/intersect.py), the shading around the shadow query as
+tracer_tpu_torch::shade_prepare and shade_finish (engine/shade.py). A
+fresh process loads the artifact and steps a
 state with no Python of the renderer: engine/integrator.py,
 engine/api.py and the scene build are not
 imported.
@@ -45,6 +47,7 @@ import torch
 
 from tracer_tpu_torch.engine import shade  # noqa: F401 (the ops)
 from tracer_tpu_torch.engine.state import EngineState
+from tracer_tpu_torch.ops import intersect  # noqa: F401 (the ops)
 from tracer_tpu_torch.ops import intersect_kernel  # noqa: F401 (the ops)
 from tracer_tpu_torch.utils import checkpoint, profiling
 
@@ -176,8 +179,8 @@ class LoadedStep:
 def load(blob: bytes):
     """The callable of an export_fn or export_step artifact: the program
     runs its aten graph and the registered ops, and never retraces the
-    renderer's Python. It imports the op registrations
-    (ops/intersect_kernel.py, engine/shade.py) and the state's structure
+    renderer's Python. It imports the op registrations (ops/intersect.py,
+    ops/intersect_kernel.py, engine/shade.py) and the state's structure
     (engine/state.py, utils/checkpoint.py), not engine/integrator.py or
     engine/api.py. A step artifact gives a LoadedStep."""
     extra = {_META: ""}

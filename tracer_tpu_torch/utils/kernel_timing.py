@@ -298,21 +298,21 @@ def closest_vs_exact(co, phi, tmax, cb, stream: bool, **kw) -> dict:
 
 def k2_block_order(co, phi, tmax, cb) -> dict:
     """K2 alone with its tiles longest schedule first, as it launches
-    them (ik.heavy_first), and in index order: the same launch with
-    heavy_first returning the identity while it is prepared."""
+    them (ik.heavy_first_launch), and in index order: the same launch with
+    heavy_first_launch returning the identity while it is prepared."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
     out = {}
     for key, order in (
-            ("heavy_first_ms", ik.heavy_first),
-            ("index_order_ms", lambda count: torch.arange(
+            ("heavy_first_ms", ik.heavy_first_launch),
+            ("index_order_ms", lambda count, n_box: torch.arange(
                 count.shape[0], dtype=torch.int32, device=count.device))):
-        kept = ik.heavy_first
-        ik.heavy_first = order
+        kept = ik.heavy_first_launch
+        ik.heavy_first_launch = order
         try:
             launch, _ = ik.prepared_launch("closest", co, phi, tmax, cb,
                                            stream=True)
         finally:
-            ik.heavy_first = kept
+            ik.heavy_first_launch = kept
         out[key] = ms_per_call(launch)
     return out
 
