@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout. Phases, each printed on its own line;
-any failure exits non-zero:
+any failure exits non-zero. A kernel's "launch alone" is the wrapper's
+own launch, recorded by ops/cuda_lib.py and replayed with nothing else
+(utils/kernel_timing.alone), for every kernel alike:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc-builds csrc/intersect.cu, csrc/prep.cu,
@@ -378,11 +380,9 @@ def tap_call(module, name, index, keep):
 
 
 def reset_path_counts(ik):
-    """Set the launch and plain-call counts of K1-K4 and of the shading
-    kernels K6/K7 to 0."""
-    from tracer_tpu_torch.engine import shade
-    ik.reset_counts()
-    shade.reset_counts()
+    """Set every kernel's launch and plain-call count to 0."""
+    from tracer_tpu_torch.ops import cuda_lib
+    cuda_lib.reset_counts()
 
 
 def path_counts(ik, phase):
@@ -390,14 +390,17 @@ def path_counts(ik, phase):
     K6 and K7 launch once a bounce, as the any-hit query does on a scene
     with a light (K3 or K4), and no plain version runs; else this
     raises."""
-    from tracer_tpu_torch.engine import shade
-    launches = {**ik.launches, **shade.launches}
-    plain = {**ik.plain_calls, **shade.plain_calls}
+    from tracer_tpu_torch.ops import cuda_lib
+    keep = VARIANTS + (EXACT,) + SHADE_KERNELS
+    launches = {k: cuda_lib.launches[k] for k in keep}
+    plain = {k: cuda_lib.plain_calls[k] for k in keep}
+    shading = {k: launches[k] for k in SHADE_KERNELS}
+    shade_plain = {k: plain[k] for k in SHADE_KERNELS}
     bounces = launches["any_hit"] + launches["any_hit_streamed"]
-    log(phase, f"shading kernels: launches {dict(shade.launches)}, plain "
-        f"calls {dict(shade.plain_calls)}, any-hit launches {bounces}")
+    log(phase, f"shading kernels: launches {shading}, plain calls "
+        f"{shade_plain}, any-hit launches {bounces}")
     if (not launches["shade_prepare"] == launches["shade_finish"] == bounces
-            or bounces <= 0 or max(shade.plain_calls.values()) != 0):
+            or bounces <= 0 or max(shade_plain.values()) != 0):
         raise AssertionError("the shading kernels did not run once a bounce")
     return launches, plain
 
@@ -1082,13 +1085,12 @@ def phase_shade(T, integrator, scene_arrays, card, device):
     against its plain version run on the card on the same operands: every
     output equal bit for bit on every lane. Then each timed as the op
     (wrapper) and as its launch alone (the library's entry point called
-    again with the op's own operands), beside the plain version and the
-    bound of the bytes its operands move. Returns name -> fields of the
-    kernels line (the capture's under capture_*)."""
-    import ctypes
+    again with the op's own operands, kernel_timing.alone), beside the
+    plain version and the bound of the bytes its operands move. Returns
+    name -> fields of the kernels line (the capture's under capture_*)."""
     import torch
     from tracer_tpu_torch.engine import shade
-    from tracer_tpu_torch.ops import cuda_lib
+    from tracer_tpu_torch.utils import kernel_timing
     ops = torch.ops.tracer_tpu_torch
     tris, tm, mats = scene_arrays
     out = {k: {} for k in SHADE_KERNELS}
@@ -1134,33 +1136,12 @@ def phase_shade(T, integrator, scene_arrays, card, device):
                 f"outputs, max abs {max_abs:.3e}")
             if unequal:
                 raise AssertionError(f"{name} differs from its plain version")
-            # the launch alone: the op's own operands and outputs, the
-            # latter held while its entry point is called again
-            seen = {}
-            launch = shade._launch
-
-            def spy(k, ptrs, ints, dev):
-                seen[k] = (list(ptrs), list(ints))
-                return launch(k, ptrs, ints, dev)
-
-            shade._launch = spy
-            try:
-                held = op()
-            finally:
-                shade._launch = launch
-            ptrs, ints = seen[name]
-            entry = getattr(shade.build(), f"{name}_launch")
-            p = (ctypes.c_void_p * len(ptrs))(*ptrs)
-            q = (ctypes.c_longlong * len(ints))(*ints)
-            stream = cuda_lib.raw_stream(args[0].device.index)
-
-            def alone():
-                if entry(p, q, len(ptrs), len(ints), stream):
-                    raise RuntimeError(f"{name} launch failed")
-
+            # the launch alone: the op's own operands and outputs, held
+            # while its entry point is called again
+            alone = kernel_timing.alone(op, name)
             t = {"ms": ms_per_call(op), "alone_ms": ms_per_call(alone),
                  "plain_ms": ms_per_call(plain, calls=5, rounds=3)}
-            del held
+            del alone
             moved = shade_bytes(name, a, got, n)
             t["bound_ms"], t["bound_by"] = bound(moved, 0)
             t["timed_at"] = (f"pool iteration {POOL_TIMED} of a "
@@ -1214,6 +1195,7 @@ def phase_prep(T, ik, intersect, card, device):
     fields of the kernels line (the any-hit query's under any_*)."""
     import torch
     from portbench.scenes import spd_tetra
+    from tracer_tpu_torch.ops import cuda_lib
     from tracer_tpu_torch.utils import profiling
     tris, tm, mats = spd_tetra.build()
     s = T.init(17, SIZE, SIZE, 0, tris, tm, mats,
@@ -1221,7 +1203,7 @@ def phase_prep(T, ik, intersect, card, device):
     dense = s.scene.accel
     cb = dense.chunk_bounds
     queries = {"closest": [], "any": []}
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     profiling.reset()   # the counters of earlier phases
     with tap_call(intersect, "closest_hit_phi", POOL_TIMED,
                   queries["closest"]), \
@@ -1231,15 +1213,16 @@ def phase_prep(T, ik, intersect, card, device):
     torch.cuda.synchronize()
     c = profiling.counters()
     profiling.reset()
-    launches = dict(ik.prep_launches)
+    launches = {k: cuda_lib.launches[k] for k in PREP_KERNELS}
+    plain_calls = {k: cuda_lib.plain_calls[k] for k in PREP_KERNELS}
     log("prep", f"2-spp render of SPD tetra ({cb.shape[0]} chunks): prep "
-        f"launches {launches}, plain calls {dict(ik.prep_plain_calls)}; "
+        f"launches {launches}, plain calls {plain_calls}; "
         f"query.prep.kernel {c.get('query.prep.kernel', 0)}, "
         f"query.prep.plain {c.get('query.prep.plain', 0)}, "
         f"query.lanes {({k: v for k, v in c.items() if 'lanes.' in k})}")
     sorted_lanes = sum(v for k, v in c.items()
                        if k.startswith("query.lanes."))
-    if (min(launches.values()) <= 0 or sum(ik.prep_plain_calls.values())
+    if (min(launches.values()) <= 0 or sum(plain_calls.values())
             or c.get("query.prep.kernel") != sorted_lanes
             or "query.prep.plain" in c):
         raise AssertionError("the preparation did not run on its kernels "
@@ -1254,15 +1237,19 @@ def phase_prep(T, ik, intersect, card, device):
         n = phi.shape[1]
         tmax = tmax.expand(n)
         tag = "" if q == "closest" else "any_"
-        # bit for bit against the plain version on the card
-        key, n_dead = torch.ops.tracer_tpu_torch.lane_key(
-            phi, tmax, dense.scene_box, "odmorton", dead_first)
-        idx = torch.sort(key, stable=True).indices
-        order, phi_s, tmax_s = torch.ops.tracer_tpu_torch.lane_deal(
-            idx, n_dead, phi, tmax,
-            intersect.SPREAD_WARPS if dead_first else 0)
-        g, sb, sched, count, tiles = ik.walk_operands(name, phi_s, tmax_s,
-                                                      cb)
+        # bit for bit against the plain version on the card; each launch
+        # recorded, to be timed alone on these operands (outputs written
+        # again in place)
+        spread = intersect.SPREAD_WARPS if dead_first else 0
+        with cuda_lib.recording() as recorded:
+            key, n_dead = torch.ops.tracer_tpu_torch.lane_key(
+                phi, tmax, dense.scene_box, "odmorton", dead_first)
+            idx = torch.sort(key, stable=True).indices
+            order, phi_s, tmax_s = torch.ops.tracer_tpu_torch.lane_deal(
+                idx, n_dead, phi, tmax, spread)
+            g, sb, sched, count, tiles = ik.walk_operands(name, phi_s,
+                                                          tmax_s, cb)
+        alone = {c.name: c for c in recorded}
         want = prep_plain(intersect, ik, dense, phi, tmax, "odmorton",
                           dead_first, name)
         want_key = intersect.perm_key(phi, cb, "odmorton")
@@ -1288,32 +1275,16 @@ def phase_prep(T, ik, intersect, card, device):
                                                     else 0):
             raise AssertionError(f"the {q} query's preparation differs "
                                  f"from its plain version")
-        # timings: the wrapper as a query runs it; each launch alone on
-        # the wrapper's operands (outputs written again in place)
-        spread = intersect.SPREAD_WARPS if dead_first else 0
-        dev = phi.device
-
+        # timings: the wrapper as a query runs it; each launch alone
         def wrapper():
             _, p_s, t_s = intersect.sorted_lanes(dense, phi, tmax,
                                                  "odmorton", dead_first)
             return ik.walk_operands(name, p_s, t_s, cb)
 
         n_box, tile = sb.shape[0], ik.BLOCKS[name]
-        alone = {
-            "lane_key": lambda: ik.prep_launch(
-                "lane_key", dev, phi, *phi.stride(), tmax, tmax.stride(0),
-                dense.scene_box, n, 2, int(dead_first), key, n_dead),
-            "lane_deal": lambda: ik.prep_launch(
-                "lane_deal", dev, idx, n_dead, phi, *phi.stride(), tmax,
-                tmax.stride(0), n, spread, order, phi_s, tmax_s),
-            "superchunk": lambda: ik.prep_launch(
-                "superchunk", dev, cb, cb.shape[0], g, n_box, sb),
-            "schedule": lambda: ik.prep_launch(
-                "schedule", dev, phi_s, *phi_s.stride(), tmax_s,
-                tmax_s.stride(0), n, tile, sb, n_box, ik.FAR_SCALE, sched,
-                count),
-            "heavy_first": lambda: ik.prep_launch(
-                "heavy_first", dev, count, count.shape[0], n_box, tiles)}
+        if set(alone) != set(PREP_KERNELS):
+            raise AssertionError(f"the {q} query's preparation launched "
+                                 f"{sorted(alone)}")
         plain = {
             "lane_key": lambda: torch.where(
                 tmax > 0, intersect.perm_key(phi, cb, "odmorton"), -1),
@@ -1358,7 +1329,8 @@ def phase_prep(T, ik, intersect, card, device):
         for k in ik.PREP_KERNELS:
             out[k][f"{tag}prep_ms"] = whole["ms"]
             out[k][f"{tag}prep_plain_ms"] = whole["plain_ms"]
-        del key, idx, order, phi_s, tmax_s, sched, count, tiles, want
+        del key, idx, order, phi_s, tmax_s, sched, count, tiles, want, alone
+        del recorded
     del s, dense, queries
     torch.cuda.empty_cache()
     return out
@@ -1392,6 +1364,7 @@ def phase_breakdown(integrator, ik, s, card, names, errs, label,
     that wall, so the share is a lower bound)."""
     import torch
     from torch.autograd import DeviceType
+    from tracer_tpu_torch.ops import cuda_lib
     from tracer_tpu_torch.utils import profiling
     w, h = s.sub_dims
 
@@ -1406,12 +1379,12 @@ def phase_breakdown(integrator, ik, s, card, names, errs, label,
     t0 = time.perf_counter()
     out = render()
     plain_wall = time.perf_counter() - t0
-    n0 = ik.launches[names[0]]
+    n0 = cuda_lib.launches[names[0]]
     with profiling.device_trace() as prof:
         t0 = time.perf_counter()
         render()
         wall = time.perf_counter() - t0
-    iters = ik.launches[names[0]] - n0
+    iters = cuda_lib.launches[names[0]] - n0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise AssertionError("the profiler recorded no device activity")
@@ -1505,6 +1478,7 @@ def check_all_variants(ik, intersect, label, dense, phi, tmax, query, errs,
     """The kernels of `query` at full width, each stream and perm setting,
     against the plain version on a strided subset of the lanes."""
     import torch
+    from tracer_tpu_torch.ops import cuda_lib
     from tracer_tpu_torch.utils import kernel_cases as kc
     n = phi.shape[1]
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
@@ -1523,7 +1497,7 @@ def check_all_variants(ik, intersect, label, dense, phi, tmax, query, errs,
                    f"({sub.shape[0]} of {n} lanes)")
             name = ik.variant_name(query,
                                    ik.streamed_variant(co.shape[1], stream))
-            before = ik.launches[name]
+            before = cuda_lib.launches[name]
             if query == "closest":
                 bt, bi = intersect.closest_hit_phi(dense, tmax, phi,
                                                    perm=perm, stream=stream)
@@ -1533,7 +1507,7 @@ def check_all_variants(ik, intersect, label, dense, phi, tmax, query, errs,
                 hit = intersect.any_hit_phi(dense, tmax, phi, perm=perm,
                                             stream=stream)
                 err = compare_any("bigscene", tag, hit[sub], ref, edge)
-            if ik.launches[name] != before + 1:
+            if cuda_lib.launches[name] != before + 1:
                 raise AssertionError(f"{tag} did not launch {name}_kernel")
             errs[name] = max(errs[name], err)
     return ref
@@ -1711,11 +1685,14 @@ def phase_big_timing(ik, s, card):
                 "plain_ms": plain[query], "bound_ms": bounds[query][0],
                 "bound_by": bounds[query][1], "library_ms": None,
                 "timed_at": shapes_of[query]}
-    ex_launch, _ = ik.prepared_launch("exact", co, phi_b, hi, cb)
-    ex_ms = ms_per_call(lambda: ik.closest_hit_exact(co, phi_b, hi, cb),
-                        calls=5, rounds=3)
+
+    def exact():
+        return ik.closest_hit_exact(co, phi_b, hi, cb)
+
     times[EXACT] = {
-        "ms": ex_ms, "alone_ms": ms_per_call(ex_launch, calls=5, rounds=3),
+        "ms": ms_per_call(exact, calls=5, rounds=3),
+        "alone_ms": ms_per_call(kernel_timing.alone(exact, EXACT), calls=5,
+                                rounds=3),
         "plain_ms": plain["closest"], "bound_ms": bounds["closest"][0],
         "bound_by": bounds["closest"][1], "library_ms": None,
         "timed_at": shapes_of["closest"]}
@@ -1871,11 +1848,11 @@ def phase_recip(device, card):
     the 50 MB L2) and 2^26 (512 MB, past it), with the host microseconds
     per call of K5 and of torch.reciprocal."""
     import torch
-    from tracer_tpu_torch.ops import recip
+    from tracer_tpu_torch.ops import cuda_lib, recip
     from tracer_tpu_torch.utils import kernel_timing, measure_recip
-    recip.reset_counts()
+    cuda_lib.reset_counts()
     res = measure_recip.measure(RECIP_SIZES[0], device)
-    launches = recip.launches[recip.NAME]
+    launches = cuda_lib.launches[recip.NAME]
     print(json.dumps(res), flush=True)
     log("recip", f"measure n={res['n']}: max_rel {res['max_rel']:.4e} = "
         f"2^{res['log2_max']:.3f}, p99.9 {res['p999_rel']:.4e}, limits "
@@ -1911,6 +1888,8 @@ def phase_recip(device, card):
         if not rel <= recip.RCP_APPROX_REL:
             raise AssertionError(f"K5 disagrees with its plain version at {n}")
         t = {"ms": ms_per_call(lambda: recip.approx_reciprocal(x)),
+             "alone_ms": ms_per_call(kernel_timing.alone(
+                 lambda: recip.approx_reciprocal(x), recip.NAME)),
              "library_ms": ms_per_call(lambda: torch.reciprocal(x)),
              "plain_ms": ms_per_call(lambda: recip.approx_reciprocal_ref(x))}
         t["bound_ms"], t["bound_by"] = bound(8 * n, 0)
@@ -1922,8 +1901,9 @@ def phase_recip(device, card):
             lambda: recip.approx_reciprocal(x))
         t["library_graph_ms"] = kernel_timing.graph_ms_per_call(
             lambda: torch.reciprocal(x))
-        log("recip", f"n=2^{n.bit_length() - 1}: K5 {t['ms']:.4f} ms, "
-            f"torch.reciprocal {t['library_ms']:.4f} ms, plain "
+        log("recip", f"n=2^{n.bit_length() - 1}: K5 {t['ms']:.4f} ms "
+            f"(launch alone {t['alone_ms']:.4f}), torch.reciprocal "
+            f"{t['library_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (8 B x n "
             f"at 3.35 TB/s), roofline share "
             f"{100 * t['bound_ms'] / t['ms']:.1f}%; vs plain: max rel "
@@ -2375,15 +2355,17 @@ def points_held_to(phase, label, got, want):
 
 
 def rank_counts(phase, label, r):
-    """Each rank's K1/K3 launches (> 0) and plain intersect calls (0)."""
+    """Each rank's K1/K3 and K6/K7 launches (> 0) and plain calls of any
+    kernel (0)."""
     launches, plain = r["launches"], r["plain_calls"]
-    log(phase, f"{label}: launches per rank closest_hit "
-        f"{launches['closest_hit']}, any_hit {launches['any_hit']}; plain "
-        f"calls per rank {plain}")
-    if (min(launches["closest_hit"]) <= 0 or min(launches["any_hit"]) <= 0
+    ran = ("closest_hit", "any_hit") + SHADE_KERNELS
+    log(phase, f"{label}: launches per rank "
+        f"{ {k: launches[k] for k in ran} }; plain calls per rank "
+        f"{ {k: v for k, v in plain.items() if max(v)} }")
+    if (min(min(launches[k]) for k in ran) <= 0
             or max(max(v) for v in plain.values()) != 0):
-        raise AssertionError(f"{label}: a rank did not run K1 and K3, or "
-                             f"ran a plain version")
+        raise AssertionError(f"{label}: a rank did not run K1, K3, K6 and "
+                             f"K7, or ran a plain version")
 
 
 def timed(fn):
@@ -2509,12 +2491,13 @@ def phase_viewer(T, ik, device, card):
     import numpy as np
     import torch
     from tracer_tpu_torch.frontends import interactive
+    from tracer_tpu_torch.ops import cuda_lib
     from tracer_tpu_torch.utils import image
     torch.cuda.synchronize()
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     state, rgb = interactive.main(["--headless", "--frames",
                                    str(VIEWER_FRAMES)])
-    launches, plain = dict(ik.launches), dict(ik.plain_calls)
+    launches, plain = dict(cuda_lib.launches), dict(cuda_lib.plain_calls)
     log("viewer", f"launches={launches} plain_calls={plain}")
     if (launches["closest_hit"] <= 0 or launches["any_hit"] <= 0
             or max(plain.values()) != 0):
@@ -2633,7 +2616,7 @@ print(json.dumps({{"export_s": secs, "bytes": len(blob)}}))
 # Step every state from its checkpoint and artifact, AOT_STEPS times, in
 # one process that never builds a scene or imports the integrator.
 _STEP_CHILD = _CHILD_HEAD + """
-from tracer_tpu_torch.ops import intersect_kernel as ik
+from tracer_tpu_torch.ops import cuda_lib
 from tracer_tpu_torch.utils import aot, checkpoint
 out = {{}}
 for name, ck, art, res in {cases!r}:
@@ -2642,7 +2625,7 @@ for name, ck, art, res in {cases!r}:
     t1 = time.perf_counter()
     step = aot.load_step(art)
     t2 = time.perf_counter()
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     walls, imgs, counters = [], [], []
     for _ in range({steps}):
         sync()
@@ -2654,8 +2637,8 @@ for name, ck, art, res in {cases!r}:
         counters.append([state.n_frames, state.nonce])
     np.savez(res, imgs=np.stack(imgs), counters=np.asarray(counters))
     out[name] = {{"checkpoint_s": t1 - t0, "load_s": t2 - t1,
-                  "walls": walls, "launches": dict(ik.launches),
-                  "plain_calls": dict(ik.plain_calls),
+                  "walls": walls, "launches": dict(cuda_lib.launches),
+                  "plain_calls": dict(cuda_lib.plain_calls),
                   "device": str(state.img.device)}}
 out["modules"] = sorted(m for m in sys.modules
                         if m.startswith("tracer_tpu_torch.engine"))
@@ -2685,13 +2668,14 @@ def aot_states(T, scene_arrays, device):
     sub6 = cornell_sub(SLICE_LEVELS)
     cases = {
         "cornell-512": (SIZE, SIZE, 0, scene_arrays, "auto",
-                        ("closest_hit", "any_hit")),
+                        ("closest_hit", "any_hit") + SHADE_KERNELS),
         "cornell-sub6-512": (SIZE, SIZE, 0, sub6, "auto",
-                             ("closest_hit_streamed", "any_hit_streamed")),
+                             ("closest_hit_streamed", "any_hit_streamed")
+                             + SHADE_KERNELS + PREP_KERNELS),
         "capture-640x480": (LIDAR_W, LIDAR_H, 2, scene_arrays, "auto",
-                            ("closest_hit", "any_hit")),
+                            ("closest_hit", "any_hit") + SHADE_KERNELS),
         "lbvh-128": (AOT_LBVH_SIZE, AOT_LBVH_SIZE, 0, scene_arrays, "lbvh",
-                     ()),
+                     SHADE_KERNELS),
     }
     out = {}
     for name, (w, h, conf, arrays, accel, kernels) in cases.items():
@@ -2852,7 +2836,7 @@ def main():
         f"CUDA {torch.version.cuda}")
     print(card, flush=True)
 
-    ik.build()
+    cuda_lib.load()
     info = cuda_lib.build_info()
     log("build", f"nvcc build of {' and '.join(info['sources'])} into one "
         f"library: {info['seconds']:.2f} s")
@@ -2864,9 +2848,9 @@ def main():
         log("build", f"cuobjdump -sass {k}: {code[k][0]} instructions "
             f"(digest {code[k][1]}), shared-memory loads {c}")
     check_wide_loads(loads)
-    lib = ik.build()
     log("build", f"K1: {ik.BLOCK} lanes per block, at least "
-        f"{lib.closest_min_blocks()} blocks per SM; exact kernel "
+        f"{cuda_lib.load().closest_min_blocks()} blocks per SM; exact "
+        f"kernel "
         f"{ik.EXACT_BLOCK} lanes, K2 {ik.STREAMED_CLOSEST_BLOCK}, K3 "
         f"{ik.ANY_BLOCK}, K4 {ik.STREAMED_ANY_BLOCK}")
 
@@ -2935,7 +2919,8 @@ def main():
     for k, t in capture_pool.items():
         cornell[k].update({f"capture_pool_{f}": v for f, v in t.items()})
 
-    fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+    fields = ("launches", "max_abs_err", "ms", "alone_ms", "plain_ms",
+              "bound_ms",
               "bound_by", "library_ms", "timed_at", "host_us",
               "library_host_us", "graph_ms", "library_graph_ms")
     # ms, alone_ms, plain_ms and bound_ms of K1-K4: on a query of the

@@ -20,6 +20,7 @@ import torch
 import tracer_tpu_torch as T
 from tracer_tpu_torch.engine import integrator as tint
 from tracer_tpu_torch.ops import bvh as tbvh
+from tracer_tpu_torch.ops import cuda_lib
 from tracer_tpu_torch.ops import intersect as tisect
 from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.ops import loop
@@ -291,9 +292,9 @@ def test_exported_step_holds_the_prep_ops(monkeypatch):
     for op in ("tracer_tpu_torch.lane_key.default",
                "tracer_tpu_torch.lane_deal.default", "aten.sort.stable"):
         assert op in targets, op
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     _steps_equal(step, s, n=2)
-    assert ik.prep_plain_calls["lane_key"] == ik.prep_plain_calls[
+    assert cuda_lib.plain_calls["lane_key"] == cuda_lib.plain_calls[
         "lane_deal"] > 0
 
 
@@ -319,18 +320,19 @@ def test_custom_ops_fake_shapes_and_cpu_plain():
     assert [(x.shape, x.dtype, x.device.type) for x in (bt, bi, hit)] == [
         ((300,), torch.float32, "cpu"), ((300,), torch.int32, "cpu"),
         ((300,), torch.bool, "cpu")]
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     bt, bi = torch.ops.tracer_tpu_torch.closest_hit(*args, None, 64)
     hit = torch.ops.tracer_tpu_torch.any_hit(*args, None, 64)
     rt, ri = ik.closest_hit_ref(*args)
     assert torch.equal(bt, rt) and torch.equal(bi, ri)
     assert torch.equal(hit, ik.any_hit_ref(*args))
     assert 0 < int(torch.isfinite(bt).sum()) < 300
-    assert ik.plain_calls["closest_hit"] == ik.plain_calls["any_hit"] == 1
-    assert sum(ik.launches.values()) == 0
+    plain = cuda_lib.plain_calls
+    assert plain["closest_hit"] == plain["any_hit"] == 1
+    assert sum(cuda_lib.launches.values()) == 0
     # the public wrappers go through the ops
     ik.closest_hit(*args, stream=True)
-    assert ik.plain_calls["closest_hit_streamed"] == 1
+    assert cuda_lib.plain_calls["closest_hit_streamed"] == 1
 
 
 def test_accumulate_color_tensor_form_equals_int_form():
@@ -376,7 +378,7 @@ def test_ops_launch_kernels_on_card(cuda_device):
     phi = tisect.ray_features_t(o, d / d.norm(dim=0))
     tmax = torch.full((4096,), 5.0, device=cuda_device)
     args = (dense.coeffs, phi, tmax, dense.chunk_bounds)
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     for stream in (False, True):
         bt, _ = torch.ops.tracer_tpu_torch.closest_hit(*args, stream, 64)
         hit = torch.ops.tracer_tpu_torch.any_hit(*args, stream, 64)
@@ -385,8 +387,9 @@ def test_ops_launch_kernels_on_card(cuda_device):
         assert torch.equal(hit.cpu(), ik.any_hit_ref(*(x.cpu()
                                                          for x in args)))
     torch.cuda.synchronize()
-    assert all(ik.launches[k] == 1 for k in ik.VARIANTS), ik.launches
-    assert all(ik.plain_calls[k] == 0 for k in ik.VARIANTS)
+    launches = cuda_lib.launches
+    assert all(launches[k] == 1 for k in ik.VARIANTS), launches
+    assert all(cuda_lib.plain_calls[k] == 0 for k in ik.VARIANTS)
 
 
 @pytest.mark.requires_cuda
@@ -395,8 +398,9 @@ def test_loaded_step_on_card(cuda_device):
     for bit, through K1/K3 with no plain call."""
     s = _accumulating(3, 0, "auto", h=32, w=32, device=cuda_device)
     step = aot.load(aot.export_step(s))
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     _steps_equal(step, s)
     torch.cuda.synchronize()
-    assert ik.launches["closest_hit"] > 0 and ik.launches["any_hit"] > 0
-    assert sum(ik.plain_calls.values()) == 0
+    assert cuda_lib.launches["closest_hit"] > 0
+    assert cuda_lib.launches["any_hit"] > 0
+    assert sum(cuda_lib.plain_calls.values()) == 0

@@ -14,6 +14,7 @@ from tracer_tpu.ops import intersect as jint
 from tracer_tpu.ops import linalg as jla
 from tracer_tpu.ops.pallas import intersect_kernel as pk
 from tracer_tpu.utils import testscenes
+from tracer_tpu_torch.ops import cuda_lib
 from tracer_tpu_torch.ops import intersect as tint
 from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.utils import kernel_cases as kc
@@ -189,7 +190,7 @@ def test_bruteforce_oracle(name):
 def test_cpu_tensors_run_plain_versions_only():
     _, jd, o, d = _case("random300")
     td = _dense_t(jd)
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     tint.closest_hit(td, 1e30, _v3t(o), _v3t(d))
     tint.any_hit(td, 4.0, _v3t(o), _v3t(d))
     phi = tint.ray_features_t(_v3t(o), _v3t(d))
@@ -198,11 +199,9 @@ def test_cpu_tensors_run_plain_versions_only():
     bt, bi = ik.closest_hit_exact(td.coeffs, phi, 1e30, td.chunk_bounds)
     rt, ri = ik.closest_hit_ref(td.coeffs, phi, 1e30, td.chunk_bounds)
     assert torch.equal(bt, rt) and torch.equal(bi, ri)
-    zero = dict.fromkeys(ik.KERNELS, 0)
-    assert ik.launches == zero
-    assert ik.plain_calls == dict(zero, closest_hit=1, any_hit=1,
-                                  closest_hit_streamed=1, any_hit_streamed=1,
-                                  closest_hit_exact=1)
+    assert cuda_lib.launches == dict.fromkeys(cuda_lib.KERNELS, 0)
+    assert {k: cuda_lib.plain_calls[k] for k in ik.KERNELS} == dict.fromkeys(
+        ik.KERNELS, 1)
     with pytest.raises(ValueError):
         ik.closest_hit(td.coeffs, torch.zeros((9, 4)), 1.0, td.chunk_bounds)
     with pytest.raises(ValueError):
@@ -218,7 +217,7 @@ def test_stats_and_prepared_launch_need_the_card():
     _, jd, o, d = _case("chunks5")
     td = _dense_t(jd)
     phi = tint.ray_features_t(_v3t(o), _v3t(d))
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     for call in (ik.closest_hit, ik.any_hit):
         for stream in (True, False):
             with pytest.raises(ValueError):
@@ -230,8 +229,8 @@ def test_stats_and_prepared_launch_need_the_card():
     with pytest.raises(ValueError, match="no streamed variant"):
         ik.prepared_launch("exact", td.coeffs, phi, 1e30, td.chunk_bounds,
                            stream=True)
-    assert ik.launches == dict.fromkeys(ik.KERNELS, 0)
-    assert ik.plain_calls == dict.fromkeys(ik.KERNELS, 0)
+    assert cuda_lib.launches == dict.fromkeys(cuda_lib.KERNELS, 0)
+    assert cuda_lib.plain_calls == dict.fromkeys(cuda_lib.KERNELS, 0)
     assert ik.variant_name("closest", True) == "closest_hit_streamed"
     assert ik.variant_name("exact", False) == ik.EXACT == "closest_hit_exact"
     assert ik.KERNELS == ik.VARIANTS + (ik.EXACT,)
@@ -249,7 +248,7 @@ def test_operand_rules_of_each_kernel(name):
     the streamed ones stage pieces of a chunk of any size; K1-K4 copy
     8-byte pieces and need coeffs 8-byte aligned (a float32 view one
     element into its storage is not), the exact kernel stages through
-    registers and does not; operands are contiguous."""
+    registers and does not; operands are contiguous (cuda_lib.operand)."""
     streamed = name.endswith("_streamed")
     assert ik.MAX_CHUNK_T == {"resident": 307, "streamed": None}
     phi, tmax = torch.zeros((10, 4)), torch.ones(4)
@@ -259,9 +258,9 @@ def test_operand_rules_of_each_kernel(name):
         flat = torch.zeros(offset + 4 * 2 * chunk_t * 10)
         co = flat[offset:].view(4, 2 * chunk_t, 10)
         assert co.data_ptr() % 8 == 4 * (offset % 2)
-        return ik._cuda_operands(co, phi, tmax, cb, chunk_t, streamed, name)
+        return ik._cuda_operands(name, co, phi, tmax, cb, chunk_t)
 
-    assert operands(256).is_contiguous()
+    assert all(x.is_contiguous() for x in operands(256))
     if streamed:
         operands(2048)
     else:
@@ -274,8 +273,8 @@ def test_operand_rules_of_each_kernel(name):
         with pytest.raises(ValueError, match="8-byte aligned"):
             operands(256, offset=1)
     with pytest.raises(ValueError, match="contiguous"):
-        ik._cuda_operands(torch.zeros((4, 512, 20))[:, :, ::2], phi, tmax, cb,
-                          256, streamed, name)
+        ik._cuda_operands(name, torch.zeros((4, 512, 20))[:, :, ::2], phi,
+                          tmax, cb, 256)
 
 
 @pytest.mark.parametrize("bad", [
@@ -360,13 +359,13 @@ def test_kernels_match_plain_on_card(name, variant, cuda_device):
     name_c = "closest_hit_streamed" if kw["stream"] else "closest_hit"
     name_a = "any_hit_streamed" if kw["stream"] else "any_hit"
     for tmax in (torch.full((n,), 1e30, device=cuda_device), tmaxes):
-        before = (ik.launches[name_c], ik.launches[name_a])
+        before = (cuda_lib.launches[name_c], cuda_lib.launches[name_a])
         bt, bi = ik.closest_hit(td.coeffs, phi, tmax, td.chunk_bounds, **kw)
         rt, ri = ik.closest_hit_ref(td.coeffs, phi, tmax, td.chunk_bounds)
         hk = ik.any_hit(td.coeffs, phi, tmax, td.chunk_bounds, **kw)
         hr = ik.any_hit_ref(td.coeffs, phi, tmax, td.chunk_bounds)
         torch.cuda.synchronize()
-        assert (ik.launches[name_c], ik.launches[name_a]) == (
+        assert (cuda_lib.launches[name_c], cuda_lib.launches[name_a]) == (
             before[0] + 1, before[1] + 1)
         edge, tie = kc.boundary_lanes(td.coeffs, phi, tmax, td.chunk_bounds)
         keep = ~edge
@@ -409,12 +408,12 @@ def test_streamed_closest_matches_plain_on_card(case, cuda_device):
         co, cb, max_sched = dense.coeffs, dense.chunk_bounds, ik.MAX_SCHED
     hi = torch.as_tensor(1e30, dtype=torch.float32, device=cuda_device)
     stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    before = ik.launches["closest_hit_streamed"]
+    before = cuda_lib.launches["closest_hit_streamed"]
     bt, bi = ik.closest_hit(co, phi, hi, cb, stream=True,
                             max_sched=max_sched, stats=stats)
     rt, ri = ik.closest_hit_ref(co, phi, hi, cb)
     torch.cuda.synchronize()
-    assert ik.launches["closest_hit_streamed"] == before + 1
+    assert cuda_lib.launches["closest_hit_streamed"] == before + 1
     edge, tie = kc.boundary_lanes(co, phi, hi, cb)
     keep = ~edge
     assert torch.equal(torch.isfinite(bt)[keep], torch.isfinite(rt)[keep])
@@ -455,13 +454,13 @@ def test_streamed_any_matches_plain_on_card(case, cuda_device):
                  np.where(np.arange(n) % 3 == 1, 0.5, 4.0)).astype(np.float32),
         device=cuda_device)
     stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
-    before = ik.launches["any_hit_streamed"]
+    before = cuda_lib.launches["any_hit_streamed"]
     hit = ik.any_hit(co, phi, tmax, cb, stream=True, max_sched=max_sched,
                      stats=stats)
     ref = ik.any_hit_ref(co, phi, tmax, cb)
     bt, _ = ik.closest_hit_exact(co, phi, tmax, cb, max_sched=max_sched)
     torch.cuda.synchronize()
-    assert ik.launches["any_hit_streamed"] == before + 1
+    assert cuda_lib.launches["any_hit_streamed"] == before + 1
     edge, _ = kc.boundary_lanes(co, phi, tmax, cb)
     assert torch.equal(hit[~edge], ref[~edge])
     assert torch.equal(hit, torch.isfinite(bt))
@@ -531,14 +530,14 @@ def test_k1_matches_exact_kernel_on_card(case, cuda_device):
         n = p.shape[1]
         mixed = _mixed_tmax(n, cuda_device)
         for tmax in (torch.full((n,), 1e30, device=cuda_device), mixed):
-            before = (ik.launches["closest_hit"], ik.launches[ik.EXACT])
+            before = (cuda_lib.launches["closest_hit"], cuda_lib.launches[ik.EXACT])
             bt, bi = ik.closest_hit(co, p, tmax, cb, stream=False,
                                     max_sched=max_sched)
             et, ei = ik.closest_hit_exact(co, p, tmax, cb,
                                           max_sched=max_sched)
             rt, _ = ik.closest_hit_ref(co, p, tmax, cb)
             torch.cuda.synchronize()
-            assert (ik.launches["closest_hit"], ik.launches[ik.EXACT]) == (
+            assert (cuda_lib.launches["closest_hit"], cuda_lib.launches[ik.EXACT]) == (
                 before[0] + 1, before[1] + 1)
             assert torch.equal(bt.view(torch.int32), et.view(torch.int32))
             assert torch.equal(bi, ei)

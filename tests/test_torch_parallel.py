@@ -107,11 +107,12 @@ def _has(pts):
 
 
 def _assert_every_rank_intersected(r, world):
-    """Every rank went through the intersect wrappers (here on the CPU:
-    their plain versions; on the card the kernels)."""
+    """Every rank went through the intersect and shading wrappers (here
+    on the CPU: their plain versions; on the card the kernels), each
+    counted in cuda_lib."""
     calls = r["plain_calls"]
-    assert all(c > 0 for c in calls["closest_hit"]), calls
-    assert all(c > 0 for c in calls["any_hit"]), calls
+    for k in ("closest_hit", "any_hit", "shade_prepare", "shade_finish"):
+        assert all(c > 0 for c in calls[k]), calls
     assert len(calls["closest_hit"]) == world
 
 

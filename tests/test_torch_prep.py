@@ -19,7 +19,7 @@ import torch
 
 import tracer_tpu_torch as T
 from portbench.scenes import spd_tetra
-from tracer_tpu_torch.ops import intersect
+from tracer_tpu_torch.ops import cuda_lib, intersect
 from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.utils import kernel_cases as kc
 from tracer_tpu_torch.utils import profiling
@@ -80,7 +80,7 @@ def test_lane_key_op_is_the_plain_key(mode, dead_first):
     dense, phi, tmax = _dense_rays(1100, 300)
     assert torch.equal(dense.scene_box,
                        intersect.scene_box(dense.chunk_bounds))
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     with profiling.tracing():
         key, n_dead = torch.ops.tracer_tpu_torch.lane_key(
             phi, tmax, dense.scene_box, mode, dead_first)
@@ -91,8 +91,8 @@ def test_lane_key_op_is_the_plain_key(mode, dead_first):
     assert key.dtype == n_dead.dtype == torch.int32
     assert torch.equal(key, want)
     assert n_dead.tolist() == [int(dead.sum()) if dead_first else 0]
-    assert ik.prep_plain_calls["lane_key"] == 1
-    assert sum(ik.prep_launches.values()) == 0
+    assert cuda_lib.plain_calls["lane_key"] == 1
+    assert sum(cuda_lib.launches.values()) == 0
     assert profiling.counters() == {"query.prep.plain": phi.shape[1]}
     profiling.reset()
 
@@ -174,13 +174,13 @@ def test_walk_operands_count_the_plain_schedule():
     """Off the card walk_operands runs the plain schedule and counts it:
     the superchunk boxes only at g > 1, the tile order only for K1-K4."""
     dense, phi, tmax = _dense_rays(1100, 300)
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     ik.walk_operands("any_hit", phi, tmax, dense.chunk_bounds, max_sched=3)
     ik.walk_operands(ik.EXACT, phi, tmax, dense.chunk_bounds)
-    assert ik.prep_plain_calls == {"lane_key": 0, "lane_deal": 0,
-                                   "superchunk": 1, "schedule": 2,
-                                   "heavy_first": 1}
-    assert sum(ik.prep_launches.values()) == 0
+    assert {k: cuda_lib.plain_calls[k] for k in ik.PREP_KERNELS} == {
+        "lane_key": 0, "lane_deal": 0, "superchunk": 1, "schedule": 2,
+        "heavy_first": 1}
+    assert sum(cuda_lib.launches.values()) == 0
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +202,7 @@ def _equal_bits(a, b):
 
 
 def _check_key(dense, phi, tmax, mode, dead_first):
-    before = ik.prep_launches["lane_key"]
+    before = cuda_lib.launches["lane_key"]
     key, n_dead = torch.ops.tracer_tpu_torch.lane_key(
         phi, tmax, dense.scene_box, mode, dead_first)
     want = intersect.perm_key(phi, dense.chunk_bounds, mode)
@@ -210,7 +210,7 @@ def _check_key(dense, phi, tmax, mode, dead_first):
     if dead_first:
         want = torch.where(dead, -1, want)
     torch.cuda.synchronize()
-    assert ik.prep_launches["lane_key"] == before + 1
+    assert cuda_lib.launches["lane_key"] == before + 1
     assert torch.equal(key, want)
     assert n_dead.tolist() == [int(dead.sum()) if dead_first else 0]
 
@@ -257,11 +257,11 @@ def test_key_and_deal_kernels_match_plain_on_card(mode, dead_first,
     count, the dealt order and the gathered phi and tmax, under a mixed
     per-lane tmax (0 and NaN lanes dead) and a broadcast scalar one."""
     dense, phi, tmax = _dense_rays(1100, 3000, cuda_device)
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     for tm in (tmax, torch.tensor(1e30, device=cuda_device)):
         _check_prep(dense, phi, tm, mode, dead_first)
-    assert ik.prep_launches["lane_deal"] == 2
-    assert sum(ik.prep_plain_calls.values()) == 0
+    assert cuda_lib.launches["lane_deal"] == 2
+    assert sum(cuda_lib.plain_calls.values()) == 0
 
 
 @pytest.mark.requires_cuda
@@ -317,15 +317,15 @@ def test_schedule_kernels_match_plain_on_card(case, tile, cuda_device,
     cb = dense.chunk_bounds
     assert phi.shape[1] % tile and phi.shape[1] > tile
     monkeypatch.setitem(ik.BLOCKS, "any_hit", tile)
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     for tm in (tmax, 1e30):
         count = _check_schedule("any_hit", phi, tm, cb, max_sched, tile)
         assert int(count.max()) > 0
         _check_schedule(ik.EXACT, phi, tm, cb, max_sched, ik.EXACT_BLOCK)
     g = -(-cb.shape[0] // max_sched)
-    assert ik.prep_launches["schedule"] == 4
-    assert ik.prep_launches["superchunk"] == (4 if g > 1 else 0)
-    assert ik.prep_launches["heavy_first"] == 2
+    assert cuda_lib.launches["schedule"] == 4
+    assert cuda_lib.launches["superchunk"] == (4 if g > 1 else 0)
+    assert cuda_lib.launches["heavy_first"] == 2
 
 
 def _pool_operands(size_factor, device):

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tracer_tpu_torch.ops import recip
+from tracer_tpu_torch.ops import cuda_lib, recip
 from tracer_tpu_torch.utils import measure_recip
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,30 +53,30 @@ def test_inputs_are_the_jax_scripts():
 
 
 def test_wrapper_dispatch():
-    recip.reset_counts()
+    cuda_lib.reset_counts()
     x = torch.as_tensor(measure_recip.inputs(257))
     y = recip.approx_reciprocal(x)
     assert torch.equal(y, torch.reciprocal(x))
     assert torch.equal(recip.approx_reciprocal_ref(x), y)
-    assert recip.plain_calls == {recip.NAME: 1}
-    assert recip.launches == {recip.NAME: 0}
+    assert cuda_lib.plain_calls[recip.NAME] == 1
+    assert sum(cuda_lib.launches.values()) == 0
     for bad in (x.double(), x.half(), x.to(torch.int32)):
         with pytest.raises(TypeError):
             recip.approx_reciprocal(bad)
-    assert recip.plain_calls == {recip.NAME: 1}
+    assert cuda_lib.plain_calls[recip.NAME] == 1
 
 
 @pytest.mark.parametrize("view", ["odd_length", "offset"])
 def test_ragged_inputs_dispatch_to_the_plain_version(view):
     """An odd length and an offset view (x[1:], not 16-byte aligned) on
     the CPU go to the plain version and equal torch.reciprocal."""
-    recip.reset_counts()
+    cuda_lib.reset_counts()
     x = torch.as_tensor(measure_recip.inputs(1027))
     x = x[:1021] if view == "odd_length" else x[1:]
     y = recip.approx_reciprocal(x)
     assert y.shape == x.shape and torch.equal(y, torch.reciprocal(x))
-    assert recip.plain_calls == {recip.NAME: 1}
-    assert recip.launches == {recip.NAME: 0}
+    assert cuda_lib.plain_calls[recip.NAME] == 1
+    assert sum(cuda_lib.launches.values()) == 0
 
 
 def test_measure_recip_cli_on_cpu(capsys):
@@ -96,11 +96,11 @@ def cuda_device():
 @pytest.mark.requires_cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     x = torch.as_tensor(measure_recip.inputs(1 << 20), device=cuda_device)
-    before = recip.launches[recip.NAME]
+    before = cuda_lib.launches[recip.NAME]
     y = recip.approx_reciprocal(x)
     ref = recip.approx_reciprocal_ref(x)
     torch.cuda.synchronize()
-    assert recip.launches[recip.NAME] == before + 1
+    assert cuda_lib.launches[recip.NAME] == before + 1
     rel = ((y.double() - ref.double()).abs() / ref.double().abs()).max()
     assert float(rel) <= recip.RCP_APPROX_REL
     with pytest.raises(ValueError):
@@ -119,10 +119,10 @@ def test_ragged_kernel_matches_plain_on_card(case, cuda_device):
     x = torch.as_tensor(measure_recip.inputs(n[case]), device=cuda_device)
     if case == "offset":
         x = x[1:]
-    before = recip.launches[recip.NAME]
+    before = cuda_lib.launches[recip.NAME]
     y = recip.approx_reciprocal(x)
     ref = recip.approx_reciprocal_ref(x)
     torch.cuda.synchronize()
-    assert recip.launches[recip.NAME] == before + 1 and y.shape == x.shape
+    assert cuda_lib.launches[recip.NAME] == before + 1 and y.shape == x.shape
     rel = ((y.double() - ref.double()).abs() / ref.double().abs()).max()
     assert float(rel) <= recip.RCP_APPROX_REL

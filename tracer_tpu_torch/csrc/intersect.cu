@@ -821,24 +821,37 @@ int any_block() { return kAnyBlock; }
 int streamed_any_block() { return kStreamedAnyBlock; }
 
 // Each entry point launches on `stream` and returns 0 or a cudaError_t
-// (cudaGetLastError() after the launch). order/count are both null (walk
-// every superchunk in index order) or both set, built at the variant's
-// block; sbounds is read at g > 1. stats (K2 and K4 only) is null or (2,)
-// counts. tiles is null or a permutation of the tiles, (grid,): block b
-// works tile tiles[b]; the yardstick takes none.
-int closest_hit_launch(int streamed, const float* coeffs, const float* phi,
-                       const float* tmax, const float* bounds,
-                       const float* sbounds, const int32_t* order,
-                       const int32_t* count, int n, int t_pad, int n_chunks,
-                       int chunk_t, int g, int n_super, const int32_t* tiles,
-                       float* best_t, int32_t* best_i,
-                       unsigned long long* stats, void* stream) {
+// (cudaGetLastError() after the launch). ptr: coeffs, phi, tmax, bounds,
+// sbounds, order, count, tiles, the outputs (best_t and best_i, or hit),
+// stats; in: streamed, n, t_pad, n_chunks, chunk_t, g, n_super.
+// order/count are both null (walk every superchunk in index order) or both
+// set, built at the variant's block; sbounds is read at g > 1. stats (K2
+// and K4 only) is null or (2,) counts. tiles is null or a permutation of
+// the tiles, (grid,): block b works tile tiles[b]; the yardstick takes
+// none.
+static int query_walk(Walk* w, const void* const* ptr, const long long* in,
+                      int n_ptr, int n_int, int want_ptr) {
+    if (n_ptr != want_ptr || n_int != 7) return (int)cudaErrorInvalidValue;
+    return make_walk(w, (const float*)ptr[0], (const float*)ptr[3],
+                     (const float*)ptr[4], (const int32_t*)ptr[5],
+                     (const int32_t*)ptr[6], (int)in[1], (int)in[2],
+                     (int)in[3], (int)in[4], (int)in[5], (int)in[6]);
+}
+
+int closest_hit_launch(const void* const* ptr, const long long* in,
+                       int n_ptr, int n_int, void* stream) {
     Walk w;
-    int err = make_walk(&w, coeffs, bounds, sbounds, order, count, n, t_pad,
-                        n_chunks, chunk_t, g, n_super);
+    int err = query_walk(&w, ptr, in, n_ptr, n_int, 11);
     if (err) return err;
-    if (!stage_ok(coeffs)) return (int)cudaErrorMisalignedAddress;
-    if (streamed) {
+    const float* phi = (const float*)ptr[1];
+    const float* tmax = (const float*)ptr[2];
+    const int32_t* tiles = (const int32_t*)ptr[7];
+    float* best_t = (float*)ptr[8];
+    int32_t* best_i = (int32_t*)ptr[9];
+    unsigned long long* stats = (unsigned long long*)ptr[10];
+    const int n = (int)in[1], chunk_t = (int)in[4];
+    if (!stage_ok(w.coeffs)) return (int)cudaErrorMisalignedAddress;
+    if (in[0]) {
         const int grid = (n + kStreamedClosestBlock - 1) / kStreamedClosestBlock;
         const size_t smem = 2 * slot_bytes(min(chunk_t, kPieceTris));
         auto kernel = stats ? closest_hit_streamed_kernel<true>
@@ -855,40 +868,36 @@ int closest_hit_launch(int streamed, const float* coeffs, const float* phi,
     return (int)cudaGetLastError();
 }
 
-// The yardstick, resident only; the arguments of closest_hit_launch, of
+// The yardstick, resident only; the operands of closest_hit_launch, of
 // which streamed must be 0 and tiles and stats null.
-int closest_hit_exact_launch(int streamed, const float* coeffs,
-                             const float* phi, const float* tmax,
-                             const float* bounds, const float* sbounds,
-                             const int32_t* order, const int32_t* count,
-                             int n, int t_pad, int n_chunks, int chunk_t,
-                             int g, int n_super, const int32_t* tiles,
-                             float* best_t, int32_t* best_i,
-                             unsigned long long* stats, void* stream) {
+int closest_hit_exact_launch(const void* const* ptr, const long long* in,
+                             int n_ptr, int n_int, void* stream) {
     Walk w;
-    int err = make_walk(&w, coeffs, bounds, sbounds, order, count, n, t_pad,
-                        n_chunks, chunk_t, g, n_super);
+    int err = query_walk(&w, ptr, in, n_ptr, n_int, 11);
     if (err) return err;
-    if (streamed || tiles || stats) return (int)cudaErrorInvalidValue;
+    if (in[0] || ptr[7] || ptr[10]) return (int)cudaErrorInvalidValue;
+    const int n = (int)in[1];
     const int grid = (n + kExactBlock - 1) / kExactBlock;
-    closest_hit_exact_kernel<<<grid, kExactBlock, slot_bytes(chunk_t),
+    closest_hit_exact_kernel<<<grid, kExactBlock, slot_bytes((int)in[4]),
                                (cudaStream_t)stream>>>(
-        w, phi, tmax, n, best_t, best_i);
+        w, (const float*)ptr[1], (const float*)ptr[2], n, (float*)ptr[8],
+        (int32_t*)ptr[9]);
     return (int)cudaGetLastError();
 }
 
-int any_hit_launch(int streamed, const float* coeffs, const float* phi,
-                   const float* tmax, const float* bounds,
-                   const float* sbounds, const int32_t* order,
-                   const int32_t* count, int n, int t_pad, int n_chunks,
-                   int chunk_t, int g, int n_super, const int32_t* tiles,
-                   uint8_t* hit, unsigned long long* stats, void* stream) {
+int any_hit_launch(const void* const* ptr, const long long* in, int n_ptr,
+                   int n_int, void* stream) {
     Walk w;
-    int err = make_walk(&w, coeffs, bounds, sbounds, order, count, n, t_pad,
-                        n_chunks, chunk_t, g, n_super);
+    int err = query_walk(&w, ptr, in, n_ptr, n_int, 10);
     if (err) return err;
-    if (!stage_ok(coeffs)) return (int)cudaErrorMisalignedAddress;
-    if (streamed) {
+    const float* phi = (const float*)ptr[1];
+    const float* tmax = (const float*)ptr[2];
+    const int32_t* tiles = (const int32_t*)ptr[7];
+    uint8_t* hit = (uint8_t*)ptr[8];
+    unsigned long long* stats = (unsigned long long*)ptr[9];
+    const int n = (int)in[1], chunk_t = (int)in[4];
+    if (!stage_ok(w.coeffs)) return (int)cudaErrorMisalignedAddress;
+    if (in[0]) {
         const int grid = (n + kStreamedAnyBlock - 1) / kStreamedAnyBlock;
         const size_t smem = 2 * slot_bytes(min(chunk_t, kStreamedAnyPiece));
         auto kernel = stats ? any_hit_streamed_kernel<true>

@@ -344,68 +344,87 @@ int prep_max_sched() { return kMaxSched; }
 
 // Each entry point launches on `stream` and returns 0 or a cudaError_t.
 // Strides are in elements; a stride of 0 broadcasts a scalar.
-int lane_key_launch(const float* phi, long long s0, long long s1,
-                    const float* tmax, long long ts, const float* box, int n,
-                    int mode, int dead_first, int32_t* key, int32_t* n_dead,
-                    void* stream) {
+
+// ptr: phi, tmax, box, key, n_dead; in: phi's strides (row, lane), tmax's,
+// n, mode, dead_first.
+int lane_key_launch(const void* const* ptr, const long long* in, int n_ptr,
+                    int n_int, void* stream) {
+    if (n_ptr != 5 || n_int != 6) return (int)cudaErrorInvalidValue;
+    const int n = (int)in[3], mode = (int)in[4];
     if (n < 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+    int32_t* n_dead = (int32_t*)ptr[4];
     cudaError_t err = cudaMemsetAsync(n_dead, 0, sizeof(int32_t),
                                       (cudaStream_t)stream);
     if (err != cudaSuccess || n == 0) return (int)err;
     lane_key_kernel<<<(n + kKeyBlock - 1) / kKeyBlock, kKeyBlock, 0,
-                      (cudaStream_t)stream>>>(phi, s0, s1, tmax, ts, box, n,
-                                              mode, dead_first, key, n_dead);
+                      (cudaStream_t)stream>>>(
+        (const float*)ptr[0], in[0], in[1], (const float*)ptr[1], in[2],
+        (const float*)ptr[2], n, mode, (int)in[5], (int32_t*)ptr[3], n_dead);
     return (int)cudaGetLastError();
 }
 
-int lane_deal_launch(const int64_t* idx, const int32_t* n_dead,
-                     const float* phi, long long s0, long long s1,
-                     const float* tmax, long long ts, int n, int spread,
-                     int64_t* order, float* phi_out, float* tmax_out,
-                     void* stream) {
+// ptr: idx, n_dead, phi, tmax, order, phi_out, tmax_out; in: phi's strides,
+// tmax's, n, spread.
+int lane_deal_launch(const void* const* ptr, const long long* in, int n_ptr,
+                     int n_int, void* stream) {
+    if (n_ptr != 7 || n_int != 5) return (int)cudaErrorInvalidValue;
+    const int n = (int)in[3], spread = (int)in[4];
     if (n < 0 || spread < 0) return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     lane_deal_kernel<<<(n + kKeyBlock - 1) / kKeyBlock, kKeyBlock, 0,
-                       (cudaStream_t)stream>>>(idx, n_dead, phi, s0, s1,
-                                               tmax, ts, n, spread, order,
-                                               phi_out, tmax_out);
+                       (cudaStream_t)stream>>>(
+        (const int64_t*)ptr[0], (const int32_t*)ptr[1], (const float*)ptr[2],
+        in[0], in[1], (const float*)ptr[3], in[2], n, spread,
+        (int64_t*)ptr[4], (float*)ptr[5], (float*)ptr[6]);
     return (int)cudaGetLastError();
 }
 
-int superchunk_launch(const float* bounds, int n_chunks, int g, int n_super,
-                      float* out, void* stream) {
+// ptr: bounds, out; in: n_chunks, g, n_super.
+int superchunk_launch(const void* const* ptr, const long long* in, int n_ptr,
+                      int n_int, void* stream) {
+    if (n_ptr != 2 || n_int != 3) return (int)cudaErrorInvalidValue;
+    const int n_chunks = (int)in[0], g = (int)in[1], n_super = (int)in[2];
     if (n_chunks <= 0 || g <= 0 || n_super != (n_chunks + g - 1) / g)
         return (int)cudaErrorInvalidValue;
     const int total = n_super * 8;
     superchunk_kernel<<<(total + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
-        bounds, n_chunks, g, n_super, out);
+        (const float*)ptr[0], n_chunks, g, n_super, (float*)ptr[1]);
     return (int)cudaGetLastError();
 }
 
+// ptr: phi, tmax, boxes, order, count; in: phi's strides, tmax's, n,
+// tile_n, n_box, the IEEE bits of the far-plane scale f32(1 + AABB_EPS).
 // tile_n lanes a tile (a multiple of 32, at most 1,024), n_box boxes (1 ..
 // kMaxSched); order (ceil(n / tile_n), n_box), count (ceil(n / tile_n),).
-int schedule_launch(const float* phi, long long s0, long long s1,
-                    const float* tmax, long long ts, int n, int tile_n,
-                    const float* boxes, int n_box, float far, int32_t* order,
-                    int32_t* count, void* stream) {
+int schedule_launch(const void* const* ptr, const long long* in, int n_ptr,
+                    int n_int, void* stream) {
+    if (n_ptr != 5 || n_int != 7) return (int)cudaErrorInvalidValue;
+    const int n = (int)in[3], tile_n = (int)in[4], n_box = (int)in[5];
     if (n < 0 || tile_n < kWarp || tile_n % kWarp
         || tile_n > kWarp * kMaxTileWarps || n_box < 1 || n_box > kMaxSched)
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
+    const uint32_t bits = (uint32_t)in[6];
+    float far;
+    memcpy(&far, &bits, sizeof far);
     const int n_tiles = (int)(((long long)n + tile_n - 1) / tile_n);
     schedule_kernel<<<n_tiles, tile_n, 0, (cudaStream_t)stream>>>(
-        phi, s0, s1, tmax, ts, n, boxes, n_box, far, order, count);
+        (const float*)ptr[0], in[0], in[1], (const float*)ptr[1], in[2], n,
+        (const float*)ptr[2], n_box, far, (int32_t*)ptr[3],
+        (int32_t*)ptr[4]);
     return (int)cudaGetLastError();
 }
 
-// count (n_tiles,) in 0..n_box -> tiles (n_tiles,).
-int heavy_first_launch(const int32_t* count, int n_tiles, int n_box,
-                       int32_t* tiles, void* stream) {
+// ptr: count (n_tiles,) in 0..n_box, tiles (n_tiles,); in: n_tiles, n_box.
+int heavy_first_launch(const void* const* ptr, const long long* in,
+                       int n_ptr, int n_int, void* stream) {
+    if (n_ptr != 2 || n_int != 2) return (int)cudaErrorInvalidValue;
+    const int n_tiles = (int)in[0], n_box = (int)in[1];
     if (n_tiles < 0 || n_box < 0 || n_box > kMaxSched)
         return (int)cudaErrorInvalidValue;
     if (n_tiles == 0) return 0;
     heavy_first_kernel<<<1, kHeavyThreads, 0, (cudaStream_t)stream>>>(
-        count, n_tiles, n_box, tiles);
+        (const int32_t*)ptr[0], n_tiles, n_box, (int32_t*)ptr[1]);
     return (int)cudaGetLastError();
 }
 

@@ -105,10 +105,14 @@ approx_reciprocal_kernel(const float* __restrict__ x, float* __restrict__ y,
 extern "C" {
 
 // Launch on `stream`; returns 0 or a cudaError_t (cudaGetLastError()
-// after the launch). n == 0 launches nothing.
-int approx_reciprocal_launch(const float* x, float* y, long long n,
-                             void* stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+// after the launch). ptr: x, y; in: n. n == 0 launches nothing.
+int approx_reciprocal_launch(const void* const* ptr, const long long* in,
+                             int n_ptr, int n_int, void* stream) {
+    if (n_ptr != 2 || n_int != 1 || in[0] < 0)
+        return (int)cudaErrorInvalidValue;
+    const float* x = (const float*)ptr[0];
+    float* y = (float*)ptr[1];
+    const long long n = in[0];
     if (n == 0) return 0;
     const uintptr_t mis = (uintptr_t)x % 16;
     const bool vec = mis == (uintptr_t)y % 16 && mis % 4 == 0;

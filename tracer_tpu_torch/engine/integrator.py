@@ -405,7 +405,7 @@ def _pool_size(n: int, spp: int, t_pad: int) -> int:
     t_pad padded triangles: every work item at once, up to the cap of
     the scene's kind (the constants above). P need not divide n: work
     item j is sample j // n of pixel j % n whatever lane takes it."""
-    cap = (POOL_LANES_STREAMED if t_pad > ik.STREAM_MIN_T_PAD
+    cap = (POOL_LANES_STREAMED if ik.streamed_variant(t_pad)
            else POOL_LANES_RESIDENT)
     return max(1, min(n * spp, cap))
 

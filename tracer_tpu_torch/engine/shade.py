@@ -36,8 +36,6 @@ lanes to the counter shade.lanes (utils/profiling).
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -53,19 +51,13 @@ from tracer_tpu_torch.utils import profiling
 # Lanes per CUDA block of both kernels (csrc/shade.cu kShadeBlock, checked
 # at load).
 BLOCK = 128
+cuda_lib.expect(shade_block=BLOCK)
 
 # Bits of the per-lane flags shade_prepare hands to shade_finish.
 BF_L, BF_B, BOTH, HIT, MISS = 1, 2, 4, 8, 16
 
+# The kernels' names in cuda_lib's counts.
 KERNELS = ("shade_prepare", "shade_finish")
-launches = {k: 0 for k in KERNELS}
-plain_calls = {k: 0 for k in KERNELS}
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        launches[k] = 0
-        plain_calls[k] = 0
 
 
 class Prepared(NamedTuple):
@@ -162,51 +154,13 @@ def _finish_plain(blocked, terms, flags, emission, ambient, first,
 
 
 # ---------------------------------------------------------------------------
-# Build and launch
-
-@functools.cache
-def build() -> ctypes.CDLL:
-    """The kernels' library (ops/cuda_lib.load), with the shading entry
-    points declared and the block checked against BLOCK."""
-    lib = cuda_lib.load()
-    lib.shade_block.argtypes = []
-    lib.shade_block.restype = ctypes.c_int
-    if lib.shade_block() != BLOCK:
-        raise RuntimeError(f"csrc/shade.cu shade_block() is "
-                           f"{lib.shade_block()} lanes, the wrapper's "
-                           f"{BLOCK}")
-    for entry in (lib.shade_prepare_launch, lib.shade_finish_launch):
-        entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p]
-        entry.restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, ptrs: list, ints: list, device) -> None:
-    """Call <name>_launch with its operands' pointers and its integers
-    (strides, counts, modes) as two arrays, on torch's current stream."""
-    entry = getattr(build(), f"{name}_launch")
-    p = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    i = (ctypes.c_longlong * len(ints))(*ints)
-    err = entry(p, i, len(ptrs), len(ints), cuda_lib.raw_stream(device.index))
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches[name] += 1
-
-
-def _operand(x, device, dtype=torch.float32, shape=None):
-    """x's pointer, after checking its device, dtype and shape."""
-    if x.device != device or x.dtype != dtype or (
-            shape is not None and tuple(x.shape) != shape):
-        raise ValueError(f"operand of {tuple(x.shape)} {x.dtype} on "
-                         f"{x.device}, want {shape} {dtype} on {device}")
-    return x.data_ptr()
-
+# The kernels' operands
 
 def _lanes(x, device, shape, dtype=torch.float32):
-    """Pointer and strides of a (n,) or (rows, n) operand whose lane axis
-    may be broadcast (stride 0) or strided."""
-    return [_operand(x, device, dtype, shape)], list(x.stride())
+    """A (n,) or (rows, n) operand whose lane axis may be broadcast (stride
+    0) or strided, checked, and its strides."""
+    return ([cuda_lib.operand(x, device, dtype, shape, strided=True)],
+            list(x.stride()))
 
 
 def _new(like, *shape, dtype=torch.float32):
@@ -230,7 +184,7 @@ _PREPARE_SCHEMA = (
 @torch.library.custom_op("tracer_tpu_torch::shade_prepare", mutates_args=(),
                          device_types="cpu", schema=_PREPARE_SCHEMA)
 def _prepare_op(*args):
-    plain_calls["shade_prepare"] += 1
+    cuda_lib.plain("shade_prepare")
     return _prepare_plain(*args)
 
 
@@ -255,7 +209,7 @@ def _prepare_cuda(state, alive, ok, t, pos, normal, color, roughness,
         ptrs += p
         ints += s
     table = light_table.contiguous()
-    ptrs.append(_operand(table, dev, shape=(table.shape[0], 23)))
+    ptrs.append(cuda_lib.operand(table, dev, shape=(table.shape[0], 23)))
     ints.append(table.shape[0])
     if sectors is None:
         ptrs += [None, None, None]
@@ -265,14 +219,15 @@ def _prepare_cuda(state, alive, ok, t, pos, normal, color, roughness,
         if ns not in (1, n):
             raise ValueError(f"sectors of shape {tuple(sectors.shape)}")
         s0, s1, s2 = sectors.stride()
-        em = trans_emission.contiguous()   # held until the launch
-        ptrs += [_operand(sectors, dev, shape=(sectors.shape[0], 9, ns)),
-                 _operand(trans_theta, dev, shape=()),
-                 _operand(em, dev, shape=(6, 2))]
+        ptrs += [cuda_lib.operand(sectors, dev,
+                                  shape=(sectors.shape[0], 9, ns),
+                                  strided=True),
+                 cuda_lib.operand(trans_theta, dev, shape=()),
+                 cuda_lib.operand(trans_emission.contiguous(), dev,
+                                  shape=(6, 2))]
         ints += [sectors.shape[0], s0, s1, s2 if ns > 1 else 0,
                  int(trans_kind)]
-    ptrs += [o.data_ptr() for o in outs]
-    _launch("shade_prepare", ptrs, ints, state.device)
+    cuda_lib.launch("shade_prepare", dev, ptrs + list(outs), ints)
     profiling.count("shade.lanes", n)
     return outs
 
@@ -296,7 +251,7 @@ _FINISH_SCHEMA = ("(Tensor blocked, Tensor terms, Tensor flags, "
 @torch.library.custom_op("tracer_tpu_torch::shade_finish", mutates_args=(),
                          device_types="cpu", schema=_FINISH_SCHEMA)
 def _finish_op(*args):
-    plain_calls["shade_finish"] += 1
+    cuda_lib.plain("shade_finish")
     return _finish_plain(*args)
 
 
@@ -305,12 +260,9 @@ def _finish_cuda(blocked, terms, flags, emission, ambient, first, first_all,
                  n_lights):
     n, dev = flags.shape[0], flags.device
     out = _finish_fake(blocked, terms, flags)
-    if not (blocked.is_contiguous() and terms.is_contiguous()
-            and flags.is_contiguous()):
-        raise ValueError("blocked, terms and flags must be contiguous")
-    ptrs = [_operand(blocked, dev, torch.bool, (2 * n,)),
-            _operand(terms, dev, torch.float32, (2, n)),
-            _operand(flags, dev, torch.uint8, (n,))]
+    ptrs = [cuda_lib.operand(blocked, dev, torch.bool, (2 * n,)),
+            cuda_lib.operand(terms, dev, torch.float32, (2, n)),
+            cuda_lib.operand(flags, dev, torch.uint8, (n,))]
     ints = [n]
     for x, dtype in ((emission, torch.float32), (ambient, torch.float32),
                      (first, torch.bool)):
@@ -323,8 +275,7 @@ def _finish_cuda(blocked, terms, flags, emission, ambient, first, first_all,
         ptrs.append(None)
         ints.append(0)
     ints += [-1 if first is not None else int(first_all), n_lights]
-    ptrs.append(out.data_ptr())
-    _launch("shade_finish", ptrs, ints, flags.device)
+    cuda_lib.launch("shade_finish", dev, ptrs + [out], ints)
     return out
 
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tracer_tpu_torch.ops import cuda_lib
 from tracer_tpu_torch.ops import intersect_kernel as ik
 from tracer_tpu_torch.ops import linalg as la
 from tracer_tpu_torch.ops import morton as morton_mod
@@ -327,7 +328,7 @@ _DEAL_SCHEMA = ("(Tensor idx, Tensor n_dead, Tensor phi, Tensor tmax, "
                          device_types="cpu", schema=_KEY_SCHEMA)
 def _lane_key_op(phi, tmax, box, mode, dead_first):
     _check_mode(mode)
-    ik.prep_plain_calls["lane_key"] += 1
+    cuda_lib.plain("lane_key")
     profiling.count("query.prep.plain", phi.shape[1])
     key = _box_key(phi, box, mode)
     if not dead_first:
@@ -341,11 +342,12 @@ def _lane_key_op(phi, tmax, box, mode, dead_first):
 def _lane_key_cuda(phi, tmax, box, mode, dead_first):
     _check_mode(mode)
     key, n_dead = _lane_key_fake(phi, tmax, box, mode, dead_first)
-    n = phi.shape[1]
-    _prep_operands(phi, (tmax, box), ((n,), (6,)))
-    ik.prep_launch("lane_key", phi.device, phi, *phi.stride(), tmax,
-                   tmax.stride(0), box.contiguous(), n, PERM_KEYS.index(mode),
-                   int(dead_first), key, n_dead)
+    n, dev = phi.shape[1], phi.device
+    cuda_lib.launch("lane_key", dev, [
+        *_lanes_operands(phi, tmax),
+        cuda_lib.operand(box.contiguous(), dev, shape=(6,)), key, n_dead],
+        [*phi.stride(), tmax.stride(0), n, PERM_KEYS.index(mode),
+         int(dead_first)])
     profiling.count("query.prep.kernel", n)
     return key, n_dead
 
@@ -359,7 +361,7 @@ def _lane_key_fake(phi, tmax, box, mode, dead_first):
 @torch.library.custom_op("tracer_tpu_torch::lane_deal", mutates_args=(),
                          device_types="cpu", schema=_DEAL_SCHEMA)
 def _lane_deal_op(idx, n_dead, phi, tmax, spread):
-    ik.prep_plain_calls["lane_deal"] += 1
+    cuda_lib.plain("lane_deal")
     order = _deal(idx, n_dead[0].long(), spread)
     if order is idx:   # an op's output may not alias its input
         order = idx.clone()
@@ -369,15 +371,13 @@ def _lane_deal_op(idx, n_dead, phi, tmax, spread):
 @_lane_deal_op.register_kernel("cuda")
 def _lane_deal_cuda(idx, n_dead, phi, tmax, spread):
     order, phi_s, tmax_s = _lane_deal_fake(idx, n_dead, phi, tmax, spread)
-    n = phi.shape[1]
-    _prep_operands(phi, (tmax,), ((n,),))
-    if (idx.dtype != torch.int64 or n_dead.dtype != torch.int32
-            or idx.shape != (n,) or n_dead.shape != (1,)
-            or not idx.is_contiguous()):
-        raise ValueError("idx is a contiguous (N,) int64 and n_dead a (1,) "
-                         "int32 tensor")
-    ik.prep_launch("lane_deal", phi.device, idx, n_dead, phi, *phi.stride(),
-                   tmax, tmax.stride(0), n, spread, order, phi_s, tmax_s)
+    n, dev = phi.shape[1], phi.device
+    # the sorted index is a contiguous (N,) int64, n_dead a (1,) int32
+    cuda_lib.launch("lane_deal", dev, [
+        cuda_lib.operand(idx, dev, torch.int64, (n,)),
+        cuda_lib.operand(n_dead, dev, torch.int32, (1,)),
+        *_lanes_operands(phi, tmax), order, phi_s, tmax_s],
+        [*phi.stride(), tmax.stride(0), n, spread])
     return order, phi_s, tmax_s
 
 
@@ -388,19 +388,14 @@ def _lane_deal_fake(idx, n_dead, phi, tmax, spread):
             phi.new_empty((n,)))
 
 
-def _prep_operands(phi, others, shapes_) -> None:
-    """phi (10, N) and each of `others` of its shape: f32 on phi's
-    device."""
-    if phi.dim() != 2 or phi.shape[0] != 10:
-        raise ValueError(f"phi must be (10, N), got {tuple(phi.shape)}")
-    for x, shape in ((phi, phi.shape), *zip(others, shapes_)):
-        if (x.dtype != torch.float32 or x.device != phi.device
-                or x.shape != shape):
-            raise ValueError(f"operand of {tuple(x.shape)} {x.dtype} on "
-                             f"{x.device}, want {tuple(shape)} float32 on "
-                             f"{phi.device}")
-    if phi.shape[1] >= 2 ** 31:
+def _lanes_operands(phi, tmax) -> list:
+    """phi (10, N) and tmax (N,), f32 on phi's device, each read through
+    its strides, checked; lane ids are int32."""
+    n, dev = phi.shape[-1], phi.device
+    if n >= 2 ** 31:
         raise ValueError("too many rays for int32 lane ids")
+    return [cuda_lib.operand(phi, dev, shape=(10, n), strided=True),
+            cuda_lib.operand(tmax, dev, shape=(n,), strided=True)]
 
 
 def sorted_lanes(dense: DenseTris, phi, tmax, mode: str, dead_first: bool):

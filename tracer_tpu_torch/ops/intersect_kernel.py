@@ -48,13 +48,10 @@ captured by torch.export (utils/aot.py) run the same implementations;
 the ops' fake rules give torch.export the output shapes. A call with
 `stats` launches directly, outside the op. The kernels are built with
 nvcc at first use by ops/cuda_lib.py, with every other source under
-csrc/, and loaded with ctypes.
+csrc/, and launched and counted there (cuda_lib.launch).
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
@@ -63,16 +60,20 @@ from tracer_tpu_torch.utils import profiling
 
 # Lanes per CUDA block, the tile of the chunk schedule, of K1, K2, K3, K4
 # and the yardstick (csrc/intersect.cu kBlock, kStreamedClosestBlock,
-# kAnyBlock, kStreamedAnyBlock and kExactBlock, checked at load through the
-# functions of _BLOCK_FNS).
+# kAnyBlock, kStreamedAnyBlock and kExactBlock, checked at load).
 BLOCK = 256
 STREAMED_CLOSEST_BLOCK = 64
 ANY_BLOCK = 256
 STREAMED_ANY_BLOCK = 64
 EXACT_BLOCK = 256
-# Most schedule entries per tile (tracer_tpu's MAX_SCHED): chunks group
-# into superchunks of g = ceil(n_chunks / max_sched).
+# Most schedule entries per tile (tracer_tpu's MAX_SCHED; csrc/prep.cu
+# kMaxSched, checked at load): chunks group into superchunks of g =
+# ceil(n_chunks / max_sched).
 MAX_SCHED = 64
+cuda_lib.expect(kernel_block=BLOCK,
+                streamed_closest_block=STREAMED_CLOSEST_BLOCK,
+                any_block=ANY_BLOCK, streamed_any_block=STREAMED_ANY_BLOCK,
+                exact_block=EXACT_BLOCK, prep_max_sched=MAX_SCHED)
 # stream=None streams the coefficients above this many padded triangles:
 # where the card's times cross. On an NVIDIA H100 80GB HBM3 at 700 W, on
 # the same 262,144 first-bounce rays (utils/kernel_timing.stream_pairs), K1
@@ -88,91 +89,33 @@ MAX_CHUNK_T = {"resident": (48 * 1024) // _TRI_BYTES, "streamed": None}
 # Bound on the (chunks, lanes) f32 temporaries of one schedule batch.
 _SCHED_ELEMS = 1 << 24
 
-# Launches of each kernel, and calls of each one's plain version. A
-# wrapper adds one where it launches its kernel (or runs its plain
-# version) and nowhere else; reset_counts() sets all to 0. VARIANTS are
-# the kernels of the path (K1-K4), EXACT the yardstick. Each launch, and
-# each plain call of the ops, also adds its lanes (phi's N, from the
-# shape) to the recorder's counter query.lanes.<kernel> (utils/profiling).
+# The kernels' names in cuda_lib's counts: VARIANTS are the kernels of
+# the path (K1-K4), EXACT the yardstick, PREP_KERNELS those of a sorted
+# query's preparation (csrc/prep.cu): the key, the deal and gather
+# (ops/intersect.py, the ops lane_key and lane_deal), the superchunk boxes,
+# the schedule and the tile order (walk_operands). Each launch of K1-K4 and
+# the yardstick, and each plain call of the ops, also adds its lanes
+# (phi's N, from the shape) to the recorder's counter
+# query.lanes.<kernel> (utils/profiling).
 VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
 EXACT = "closest_hit_exact"
 KERNELS = VARIANTS + (EXACT,)
 BLOCKS = dict(zip(KERNELS, (BLOCK, STREAMED_CLOSEST_BLOCK, ANY_BLOCK,
                            STREAMED_ANY_BLOCK, EXACT_BLOCK)))
-_BLOCK_FNS = dict(zip(KERNELS, ("kernel_block", "streamed_closest_block",
-                                "any_block", "streamed_any_block",
-                                "exact_block")))
-launches = {k: 0 for k in KERNELS}
-plain_calls = {k: 0 for k in KERNELS}
-# The kernels of a sorted query's preparation (csrc/prep.cu): the key, the
-# deal and gather (ops/intersect.py, the ops lane_key and lane_deal), the
-# superchunk boxes, the schedule and the tile order (walk_operands). Each
-# launch adds one to prep_launches; each call of a plain version where a
-# wrapper dispatches (the ops on the CPU, walk_operands off the card) one
-# to prep_plain_calls.
 PREP_KERNELS = ("lane_key", "lane_deal", "superchunk", "schedule",
                 "heavy_first")
-prep_launches = {k: 0 for k in PREP_KERNELS}
-prep_plain_calls = {k: 0 for k in PREP_KERNELS}
-
-
-def reset_counts() -> None:
-    for k in KERNELS:
-        launches[k] = 0
-        plain_calls[k] = 0
-    for k in PREP_KERNELS:
-        prep_launches[k] = 0
-        prep_plain_calls[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# Build and load
-
-@functools.cache
-def build() -> ctypes.CDLL:
-    """The kernels' library (ops/cuda_lib.load: every csrc source, built
-    once per hash of the sources), with the intersection entry points
-    declared and each variant's block checked against BLOCKS."""
-    lib = cuda_lib.load()
-    for name, fn in _BLOCK_FNS.items():
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = ctypes.c_int
-        if getattr(lib, fn)() != BLOCKS[name]:
-            raise RuntimeError(f"csrc/intersect.cu {fn}() is "
-                               f"{getattr(lib, fn)()} lanes, the wrapper's "
-                               f"{BLOCKS[name]}")
-    lib.closest_min_blocks.argtypes = []
-    lib.closest_min_blocks.restype = ctypes.c_int
-    head = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    for entry in (lib.closest_hit_launch, lib.closest_hit_exact_launch):
-        entry.argtypes = head + [ctypes.c_void_p] * 5
-        entry.restype = ctypes.c_int
-    lib.any_hit_launch.argtypes = head + [ctypes.c_void_p] * 4
-    lib.any_hit_launch.restype = ctypes.c_int
-    lib.prep_max_sched.argtypes = []
-    lib.prep_max_sched.restype = ctypes.c_int
-    if lib.prep_max_sched() != MAX_SCHED:
-        raise RuntimeError(f"csrc/prep.cu takes {lib.prep_max_sched()} "
-                           f"schedule entries, the wrapper {MAX_SCHED}")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, args in _PREP_ARGS.items():
-        entry = getattr(lib, f"{name}_launch")
-        entry.argtypes = [{"p": p, "i": i, "l": ll, "f": ctypes.c_float}[a]
-                          for a in args] + [p]
-        entry.restype = ctypes.c_int
-    return lib
-
-
-# The arguments of each csrc/prep.cu entry point before its stream: p a
-# pointer, l an int64 stride, i an int, f a float.
-_PREP_ARGS = {"lane_key": "pllplpiiipp", "lane_deal": "pppllpliippp",
-              "superchunk": "piiip", "schedule": "pllpliipifpp",
-              "heavy_first": "piip"}
 
 
 # ---------------------------------------------------------------------------
 # Argument checks
+
+def _lane_tmax(tmax, phi):
+    """tmax, a scalar or per lane, as f32 on phi's device, a scalar
+    expanded to phi's N lanes."""
+    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
+    return tmax.expand(phi.shape[-1]) if tmax.dim() == 0 else tmax
+
 
 def _check(coeffs, phi, tmax, chunk_bounds):
     """Validate the operands; returns (tmax as (N,) f32, n_chunks,
@@ -197,13 +140,23 @@ def _check(coeffs, phi, tmax, chunk_bounds):
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.device != phi.device:
             raise ValueError(f"{name} is on {x.device}, phi on {phi.device}")
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
-    if tmax.dim() == 0:
-        tmax = tmax.expand(n)
+    tmax = _lane_tmax(tmax, phi)
     if tmax.shape != (n,):
         raise ValueError(f"tmax must be a scalar or ({n},), got "
                          f"{tuple(tmax.shape)}")
     return tmax, n_chunks, t_pad // n_chunks
+
+
+def _check_options(stream, max_sched) -> None:
+    """stream is None, True or False; max_sched an int in 1..MAX_SCHED.
+    The wrappers check them before the ops, whose schema would take
+    stream=1 as True."""
+    if stream is not None and not isinstance(stream, bool):
+        raise ValueError(f"stream must be None, True or False, got {stream!r}")
+    if (isinstance(max_sched, bool) or not isinstance(max_sched, int)
+            or not 1 <= max_sched <= MAX_SCHED):
+        raise ValueError(f"max_sched must be an int in 1..{MAX_SCHED}, got "
+                         f"{max_sched!r}")
 
 
 def streamed_variant(t_pad: int, stream=None, max_sched: int = MAX_SCHED
@@ -211,35 +164,28 @@ def streamed_variant(t_pad: int, stream=None, max_sched: int = MAX_SCHED
     """Check the walk options and resolve `stream`: True or False as
     given, None for streaming above STREAM_MIN_T_PAD padded triangles.
     max_sched (1..MAX_SCHED) bounds the schedule entries per tile."""
-    if stream is not None and not isinstance(stream, bool):
-        raise ValueError(f"stream must be None, True or False, got {stream!r}")
-    if (isinstance(max_sched, bool) or not isinstance(max_sched, int)
-            or not 1 <= max_sched <= MAX_SCHED):
-        raise ValueError(f"max_sched must be an int in 1..{MAX_SCHED}, got "
-                         f"{max_sched!r}")
+    _check_options(stream, max_sched)
     return t_pad > STREAM_MIN_T_PAD if stream is None else stream
 
 
-def _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed, name):
-    kind = "streamed" if streamed else "resident"
+def _cuda_operands(name, coeffs, phi, tmax, chunk_bounds, chunk_t: int):
+    """What kernel `name` takes of the operands _check passed: coeffs,
+    phi, tmax (made contiguous) and chunk_bounds, each contiguous on phi's
+    device; a resident kernel stages a chunk in 48 KB, K1-K4 copy 8-byte
+    pieces of coeffs, lane ids are int32."""
+    kind = "streamed" if name.endswith("_streamed") else "resident"
     cap = MAX_CHUNK_T[kind]
     if cap is not None and chunk_t > cap:
         raise ValueError(f"chunk of {chunk_t} triangles exceeds the {kind} "
                          f"kernel's {cap}")
-    for label, x in (("coeffs", coeffs), ("phi", phi),
-                     ("chunk_bounds", chunk_bounds)):
-        if not x.is_contiguous():
-            raise ValueError(f"{label} must be contiguous")
+    ops = [cuda_lib.operand(x, phi.device)
+           for x in (coeffs, phi, tmax.contiguous(), chunk_bounds)]
     if name != EXACT and coeffs.data_ptr() % 8:
         raise ValueError(f"{name}_kernel stages 8-byte pieces: coeffs must "
                          f"be 8-byte aligned")
     if phi.shape[1] >= 2 ** 31:
         raise ValueError("too many rays for int32 lane ids")
-    return tmax.contiguous()
-
-
-def _ptr(x) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if x is None else x.data_ptr())
+    return ops
 
 
 # ---------------------------------------------------------------------------
@@ -410,8 +356,9 @@ _ENTRIES = {"closest": "closest_hit_launch", "any": "any_hit_launch",
 
 
 def variant_name(query: str, streamed: bool) -> str:
-    """The kernel's name in launches: closest_hit, any_hit, either with
-    _streamed, or closest_hit_exact (query "exact", resident only)."""
+    """The kernel's name in cuda_lib's counts: closest_hit, any_hit,
+    either with _streamed, or closest_hit_exact (query "exact", resident
+    only)."""
     if query not in _ENTRIES:
         raise ValueError(f"query is 'closest', 'any' or 'exact', got "
                          f"{query!r}")
@@ -426,45 +373,28 @@ def variant_name(query: str, streamed: bool) -> str:
 # The preparation's kernels (csrc/prep.cu)
 
 # _tile_entry's far-plane scale, f32(1 + AABB_EPS) as PyTorch rounds the
-# python scalar it multiplies by (the schedule kernel takes it)
-FAR_SCALE = torch.tensor(1.0 + shapes.AABB_EPS,
-                         dtype=torch.float32).item()
-
-
-def prep_launch(name: str, device, *args) -> None:
-    """Launch csrc/prep.cu's <name>_launch (name of PREP_KERNELS) on
-    torch's current stream of `device`: tensors go as their pointers,
-    python ints and floats as they are. Counts the launch."""
-    entry = getattr(build(), f"{name}_launch")
-    err = entry(*(x.data_ptr() if isinstance(x, torch.Tensor) else x
-                  for x in args), cuda_lib.raw_stream(device.index))
-    if err:
-        raise RuntimeError(f"{name}_kernel launch failed: CUDA error {err}")
-    prep_launches[name] += 1
+# python scalar it multiplies by, as the IEEE bits the schedule kernel takes
+FAR_SCALE_BITS = torch.tensor(1.0 + shapes.AABB_EPS,
+                              dtype=torch.float32).view(torch.int32).item()
 
 
 def heavy_first_launch(count, n_box: int):
-    """heavy_first(count) by heavy_first_kernel, for a contiguous int32
-    count of values in 0..n_box (a schedule's count) on the card."""
-    if (count.dtype != torch.int32 or count.dim() != 1
-            or not count.is_contiguous() or not 0 <= n_box <= MAX_SCHED):
-        raise ValueError("count must be a contiguous (n_tiles,) int32 "
-                         f"tensor and n_box in 0..{MAX_SCHED}")
+    """heavy_first(count) by heavy_first_kernel, for a contiguous (n_tiles,)
+    int32 count of values in 0..n_box (a schedule's count) on the card."""
+    if count.dim() != 1 or not 0 <= n_box <= MAX_SCHED:
+        raise ValueError(f"count must be 1-d and n_box in 0..{MAX_SCHED}")
     tiles = torch.empty_like(count)
     if count.numel():
-        prep_launch("heavy_first", count.device, count, count.shape[0],
-                    n_box, tiles)
+        cuda_lib.launch("heavy_first", count.device, [
+            cuda_lib.operand(count, count.device, torch.int32), tiles],
+            [count.shape[0], n_box])
     return tiles
 
 
 def _walk_operands_cuda(name: str, phi, tmax, chunk_bounds, max_sched: int):
-    if phi.dim() != 2 or phi.shape[0] != 10:
-        raise ValueError(f"phi must be (10, N), got {tuple(phi.shape)}")
-    for label, x in (("phi", phi), ("chunk_bounds", chunk_bounds)):
-        if x.dtype != torch.float32 or x.device != phi.device:
-            raise ValueError(f"{label} must be float32 on {phi.device}")
-    dev, n = phi.device, phi.shape[1]
-    chunk_bounds = chunk_bounds.contiguous()
+    dev, n = phi.device, phi.shape[-1]
+    cuda_lib.operand(phi, dev, shape=(10, n), strided=True)
+    chunk_bounds = cuda_lib.operand(chunk_bounds.contiguous(), dev)
     n_chunks = chunk_bounds.shape[0]
     g = -(-n_chunks // max_sched)
     if n_chunks == 1:
@@ -472,17 +402,17 @@ def _walk_operands_cuda(name: str, phi, tmax, chunk_bounds, max_sched: int):
     sbounds = chunk_bounds
     if g > 1:
         sbounds = torch.empty((-(-n_chunks // g), 8), device=dev)
-        prep_launch("superchunk", dev, chunk_bounds, n_chunks, g,
-                    sbounds.shape[0], sbounds)
+        cuda_lib.launch("superchunk", dev, [chunk_bounds, sbounds],
+                        [n_chunks, g, sbounds.shape[0]])
     n_box, tile = sbounds.shape[0], BLOCKS[name]
     order = torch.empty((-(-n // tile), n_box), dtype=torch.int32,
                         device=dev)
     count = torch.empty((order.shape[0],), dtype=torch.int32, device=dev)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(n)
     if n:
-        prep_launch("schedule", dev, phi, *phi.stride(), tmax,
-                    tmax.stride(0), n, tile, sbounds, n_box, FAR_SCALE,
-                    order, count)
+        cuda_lib.launch("schedule", dev, [phi, tmax, sbounds, order, count],
+                        [*phi.stride(), tmax.stride(0), n, tile, n_box,
+                         FAR_SCALE_BITS])
     tiles = None if name == EXACT else heavy_first_launch(count, n_box)
     return g, sbounds, order, count, tiles
 
@@ -507,22 +437,23 @@ def walk_operands(name: str, phi, tmax, chunk_bounds,
         tiles = (None if count is None or name == EXACT
                  else heavy_first(count))
         if count is not None:
-            prep_plain_calls["schedule"] += 1
-            prep_plain_calls["superchunk"] += g > 1
-            prep_plain_calls["heavy_first"] += tiles is not None
+            cuda_lib.plain("schedule")
+            if g > 1:
+                cuda_lib.plain("superchunk")
+            if tiles is not None:
+                cuda_lib.plain("heavy_first")
     return g, sbounds, order, count, tiles
 
 
 def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
                     stream=None, max_sched: int = MAX_SCHED, stats=None):
-    """The kernel launch of closest_hit (query "closest"), any_hit ("any")
-    or closest_hit_exact ("exact", stream None or False) on CUDA operands,
-    with the operands checked and the chunk schedule built now: returns
-    (launch, outs), where each launch() queues the kernel into the tensors
-    outs, adds one to its count and returns outs (N = 0 launches nothing).
+    """Launch closest_hit (query "closest"), any_hit ("any") or
+    closest_hit_exact ("exact", stream None or False) on CUDA operands,
+    with the operands checked and the chunk schedule built now; returns
+    the outputs, (best_t, best_i) or (hit,) (N = 0 launches nothing).
     stats (the streamed kernels, K2 and K4, only): an int64 (2,) tensor on
-    the card to which each launch adds the chunks it copied and the (warp,
-    chunk) scans it ran. The schedule's tensors live as long as launch."""
+    the card to which the launch adds the chunks it copied and the (warp,
+    chunk) scans it ran."""
     tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     if query == "exact" and stream is None:
         stream = False
@@ -542,41 +473,23 @@ def prepared_launch(query: str, coeffs, phi, tmax, chunk_bounds, *,
         outs = (torch.empty((n,), dtype=torch.float32, device=phi.device),
                 torch.empty((n,), dtype=torch.int32, device=phi.device))
     if not n:
-        return (lambda: outs), outs
-    entry = getattr(build(), _ENTRIES[query])
-    tmax = _cuda_operands(coeffs, phi, tmax, chunk_bounds, chunk_t, streamed,
-                          name)
-    g, sbounds, order, count, tiles = walk_operands(name, phi, tmax,
-                                                    chunk_bounds, max_sched)
-    args = (int(streamed), _ptr(coeffs), _ptr(phi), _ptr(tmax),
-            _ptr(chunk_bounds), _ptr(sbounds), _ptr(order), _ptr(count), n,
-            coeffs.shape[1], n_chunks, chunk_t, g, sbounds.shape[0],
-            _ptr(tiles), *map(_ptr, outs), _ptr(stats),
-            cuda_lib.raw_stream(phi.device.index))
-
-    # the default argument keeps the tensors behind args' pointers alive
-    def launch(_held=(tmax, sbounds, order, count, tiles, stats)):
-        err = entry(*args)
-        if err:
-            raise RuntimeError(f"{name}_kernel launch failed: CUDA error "
-                               f"{err}")
-        launches[name] += 1
-        profiling.count("query.lanes." + name, n)
         return outs
-
-    return launch, outs
-
-
-def _no_stats_on_cpu(stats) -> None:
-    if stats is not None:
-        raise ValueError("stats counts a kernel's work; the plain version "
-                         "has none")
+    ops = _cuda_operands(name, coeffs, phi, tmax, chunk_bounds, chunk_t)
+    g, sbounds, order, count, tiles = walk_operands(name, phi, ops[2],
+                                                    chunk_bounds, max_sched)
+    cuda_lib.launch(name, phi.device,
+                    [*ops, sbounds, order, count, tiles, *outs, stats],
+                    [int(streamed), n, coeffs.shape[1], n_chunks, chunk_t, g,
+                     sbounds.shape[0]], entry=_ENTRIES[query])
+    profiling.count("query.lanes." + name, n)
+    return outs
 
 
 # ---------------------------------------------------------------------------
 # The custom ops: tmax is always (N,); stream and max_sched as the
 # wrappers take them. The CPU implementation is the plain version, the
-# CUDA one the kernel (prepared_launch); no device falls back.
+# CUDA one the kernel (prepared_launch); no device falls back. Each checks
+# the operands and resolves the variant, once a query.
 
 _OPERANDS = ("(Tensor coeffs, Tensor phi, Tensor tmax, Tensor chunk_bounds, "
              "bool? stream, int max_sched)")
@@ -589,16 +502,15 @@ def _closest_op(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
     _, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
     name = variant_name("closest", streamed)
-    plain_calls[name] += 1
+    cuda_lib.plain(name)
     profiling.count("query.lanes." + name, phi.shape[1])
     return _closest_plain(coeffs, phi, tmax, n_chunks, chunk_t)
 
 
 @_closest_op.register_kernel("cuda")
 def _closest_cuda(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
-    launch, _ = prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
-                                stream=stream, max_sched=max_sched)
-    return launch()
+    return prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
+                           stream=stream, max_sched=max_sched)
 
 
 @_closest_op.register_fake
@@ -614,16 +526,15 @@ def _any_op(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
     _, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed = streamed_variant(coeffs.shape[1], stream, max_sched)
     name = variant_name("any", streamed)
-    plain_calls[name] += 1
+    cuda_lib.plain(name)
     profiling.count("query.lanes." + name, phi.shape[1])
     return _any_plain(coeffs, phi, tmax, n_chunks, chunk_t)
 
 
 @_any_op.register_kernel("cuda")
 def _any_cuda(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
-    launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
-                                stream=stream, max_sched=max_sched)
-    return launch()[0]
+    return prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
+                           stream=stream, max_sched=max_sched)[0]
 
 
 @_any_op.register_fake
@@ -632,7 +543,8 @@ def _any_fake(coeffs, phi, tmax, chunk_bounds, stream, max_sched):
 
 
 # ---------------------------------------------------------------------------
-# Dispatching wrappers
+# Dispatching wrappers: the options checked, tmax shaped to (N,), the rest
+# to the op (or, with stats, to prepared_launch, which takes no CPU call)
 
 def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
                 max_sched: int = MAX_SCHED, stats=None):
@@ -641,16 +553,13 @@ def closest_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
     STREAM_MIN_T_PAD), True or False; max_sched: schedule entries per
     tile, 1..MAX_SCHED; stats: see prepared_launch (a CPU call takes
     none)."""
-    tmax_v, _, _ = _check(coeffs, phi, tmax, chunk_bounds)
-    streamed_variant(coeffs.shape[1], stream, max_sched)
+    _check_options(stream, max_sched)
     if stats is not None:   # outside the op: a launch with counters
-        if phi.device.type == "cpu":
-            _no_stats_on_cpu(stats)
-        launch, _ = prepared_launch("closest", coeffs, phi, tmax,
-                                    chunk_bounds, stream=stream,
-                                    max_sched=max_sched, stats=stats)
-        return launch()
-    return _closest_op(coeffs, phi, tmax_v, chunk_bounds, stream, max_sched)
+        return prepared_launch("closest", coeffs, phi, tmax, chunk_bounds,
+                               stream=stream, max_sched=max_sched,
+                               stats=stats)
+    return _closest_op(coeffs, phi, _lane_tmax(tmax, phi), chunk_bounds,
+                       stream, max_sched)
 
 
 def closest_hit_exact(coeffs, phi, tmax, chunk_bounds, *,
@@ -659,14 +568,13 @@ def closest_hit_exact(coeffs, phi, tmax, chunk_bounds, *,
     the divide on every triangle): what K1 and K2 must give in best_t bit
     for bit, and K3 and K4 in isfinite(best_t). A check, not a path: the
     smoke run, utils/kernel_timing.py and the card tests call it."""
-    tmax_v, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
+    if phi.device.type != "cpu":
+        return prepared_launch("exact", coeffs, phi, tmax, chunk_bounds,
+                               max_sched=max_sched)
+    tmax, n_chunks, chunk_t = _check(coeffs, phi, tmax, chunk_bounds)
     streamed_variant(coeffs.shape[1], False, max_sched)
-    if phi.device.type == "cpu":
-        plain_calls[EXACT] += 1
-        return _closest_plain(coeffs, phi, tmax_v, n_chunks, chunk_t)
-    launch, _ = prepared_launch("exact", coeffs, phi, tmax, chunk_bounds,
-                                max_sched=max_sched)
-    return launch()
+    cuda_lib.plain(EXACT)
+    return _closest_plain(coeffs, phi, tmax, n_chunks, chunk_t)
 
 
 def any_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
@@ -674,13 +582,10 @@ def any_hit(coeffs, phi, tmax, chunk_bounds, *, stream=None,
     """Whether any triangle is hit before tmax, per ray: (N,) bool,
     through the op tracer_tpu_torch::any_hit. stream, max_sched and stats
     as for closest_hit."""
-    tmax_v, _, _ = _check(coeffs, phi, tmax, chunk_bounds)
-    streamed_variant(coeffs.shape[1], stream, max_sched)
+    _check_options(stream, max_sched)
     if stats is not None:
-        if phi.device.type == "cpu":
-            _no_stats_on_cpu(stats)
-        launch, _ = prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
-                                    stream=stream, max_sched=max_sched,
-                                    stats=stats)
-        return launch()[0]
-    return _any_op(coeffs, phi, tmax_v, chunk_bounds, stream, max_sched)
+        return prepared_launch("any", coeffs, phi, tmax, chunk_bounds,
+                               stream=stream, max_sched=max_sched,
+                               stats=stats)[0]
+    return _any_op(coeffs, phi, _lane_tmax(tmax, phi), chunk_bounds, stream,
+                   max_sched)

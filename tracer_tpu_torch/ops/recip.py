@@ -18,13 +18,10 @@ approximates; a contiguous CUDA tensor of any length and offset launches
 the kernel; anything else raises. The output is allocated at x's offset
 from a 16-byte boundary, so that the kernel's float4 body covers both.
 The kernel is built with the others by ops/cuda_lib.py at first use; a
-call on the card is the checks, one allocation and the ctypes launch.
+call on the card is the checks, one allocation and cuda_lib.launch.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
@@ -40,26 +37,8 @@ APPROX_RECIP_REL = 2.0 ** -8
 # input (about 2^-9) or any coarser approximation fails it.
 RCP_APPROX_REL = 2.0 ** -22
 
+# The kernel's name in cuda_lib's counts.
 NAME = "approx_reciprocal"
-# Kernel launches and plain-version calls; a wrapper adds one where it
-# launches the kernel (or runs the plain version) and nowhere else.
-launches = {NAME: 0}
-plain_calls = {NAME: 0}
-
-
-def reset_counts() -> None:
-    launches[NAME] = 0
-    plain_calls[NAME] = 0
-
-
-@functools.cache
-def build() -> ctypes.CDLL:
-    """The kernels' library with K5's entry point declared."""
-    lib = cuda_lib.load()
-    lib.approx_reciprocal_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    lib.approx_reciprocal_launch.restype = ctypes.c_int
-    return lib
 
 
 def approx_reciprocal_ref(x: torch.Tensor) -> torch.Tensor:
@@ -72,12 +51,11 @@ def approx_reciprocal(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32:
         raise TypeError(f"x must be float32, got {x.dtype}")
     if x.device.type == "cpu":
-        plain_calls[NAME] += 1
+        cuda_lib.plain(NAME)
         return approx_reciprocal_ref(x)
     if x.device.type != "cuda":
         raise ValueError(f"no approximate-reciprocal kernel for {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
+    cuda_lib.operand(x, x.device)
     n = x.numel()
     skew = (x.data_ptr() >> 2) & 3  # floats past x's 16-byte boundary
     if skew:
@@ -86,10 +64,5 @@ def approx_reciprocal(x: torch.Tensor) -> torch.Tensor:
     else:
         y = torch.empty_like(x)
     if n:
-        err = build().approx_reciprocal_launch(
-            x.data_ptr(), y.data_ptr(), n, cuda_lib.raw_stream(x.device.index))
-        if err:
-            raise RuntimeError(f"approx_reciprocal_kernel launch failed: "
-                               f"CUDA error {err}")
-        launches[NAME] += 1
+        cuda_lib.launch(NAME, x.device, [x, y], [n])
     return y

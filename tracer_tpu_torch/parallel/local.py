@@ -21,7 +21,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from tracer_tpu_torch.ops import intersect_kernel as ik
+from tracer_tpu_torch.ops import cuda_lib
 from tracer_tpu_torch.parallel import render as par
 from tracer_tpu_torch.utils import checkpoint
 
@@ -41,10 +41,10 @@ def run_sharded(world: int, calls, *, device="cuda", backend: str = "gloo",
     Returns, per call, rank 0's {"out": the result on the CPU (a step's:
     the last image; a merge's: {"pos", "inten", "best_d"}), "seconds":
     its wall from a barrier to the result on the host, "launches" /
-    "plain_calls": {kernel: [count on each rank]}}, and for step_sharded
-    "nonce" and "n_frames". device: "cuda" puts rank r on card r modulo
-    the cards there are, "cuda:i" every rank on card i, "cpu" on the
-    host. threads: torch's CPU threads in each rank."""
+    "plain_calls": {kernel of cuda_lib.KERNELS: [count on each rank]}},
+    and for step_sharded "nonce" and "n_frames". device: "cuda" puts rank
+    r on card r modulo the cards there are, "cuda:i" every rank on card
+    i, "cpu" on the host. threads: torch's CPU threads in each rank."""
     for name, (n_tile, n_sample), _, _ in calls:
         if name not in CALLS:
             raise ValueError(f"unknown call {name!r}")
@@ -102,7 +102,7 @@ def _run(name, s, mesh, arg, rank, world, device) -> dict:
     extra = {}
     _sync(device)
     dist.barrier()
-    ik.reset_counts()
+    cuda_lib.reset_counts()
     t0 = time.perf_counter()
     if name == "step_sharded":
         for _ in range(arg):
@@ -118,16 +118,17 @@ def _run(name, s, mesh, arg, rank, world, device) -> dict:
         out = getattr(par, name)(s, mesh, arg)
     _sync(device)
     secs = time.perf_counter() - t0
-    counts = torch.zeros((world, 2, len(ik.KERNELS)), dtype=torch.int64,
+    names = cuda_lib.KERNELS
+    counts = torch.zeros((world, 2, len(names)), dtype=torch.int64,
                          device=device)
-    counts[rank, 0] = torch.tensor([ik.launches[k] for k in ik.KERNELS])
-    counts[rank, 1] = torch.tensor([ik.plain_calls[k] for k in ik.KERNELS])
+    counts[rank, 0] = torch.tensor([cuda_lib.launches[k] for k in names])
+    counts[rank, 1] = torch.tensor([cuda_lib.plain_calls[k] for k in names])
     dist.all_reduce(counts)
     counts = counts.cpu()
     cpu = ({k: v.cpu() for k, v in out.items()} if isinstance(out, dict)
            else out.cpu())
     return {"out": cpu, "seconds": secs, **extra,
             "launches": {k: counts[:, 0, i].tolist()
-                         for i, k in enumerate(ik.KERNELS)},
+                         for i, k in enumerate(names)},
             "plain_calls": {k: counts[:, 1, i].tolist()
-                            for i, k in enumerate(ik.KERNELS)}}
+                            for i, k in enumerate(names)}}

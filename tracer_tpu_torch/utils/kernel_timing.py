@@ -73,6 +73,20 @@ def tap(module, name, calls):
         setattr(module, name, fn)
 
 
+def alone(fn, name: str):
+    """The launch of kernel `name` (of cuda_lib.KERNELS) that fn() makes,
+    the last if it makes several, as a cuda_lib.Launch: calling it queues
+    that launch again on the same operands and outputs, which it holds,
+    with nothing else (the kernel's "launch alone")."""
+    from tracer_tpu_torch.ops import cuda_lib
+    with cuda_lib.recording() as calls:
+        fn()
+    found = [c for c in calls if c.name == name]
+    if not found:
+        raise AssertionError(f"no launch of {name}_kernel to time alone")
+    return found[-1]
+
+
 def ms_per_call(fn, calls: int = 20, rounds: int = 5) -> float:
     """Median over `rounds` of the CUDA-event time of `calls` back-to-back
     calls divided by `calls`, after two warm-up calls. Back to back, the
@@ -177,14 +191,16 @@ def kernel_times(query: str, co, phi, tmax, cb, stream: bool) -> dict:
     kernel's launch with the schedule built once beforehand. query:
     "closest", "any" or "exact" (stream False)."""
     from tracer_tpu_torch.ops import intersect_kernel as ik
-    if query == "exact":   # the yardstick kernel, resident only
-        def call(*args, stream):
-            return ik.closest_hit_exact(*args)
-    else:
+
+    def wrapper():
+        if query == "exact":   # the yardstick kernel, resident only
+            return ik.closest_hit_exact(co, phi, tmax, cb)
         call = ik.closest_hit if query == "closest" else ik.any_hit
-    launch, _ = ik.prepared_launch(query, co, phi, tmax, cb, stream=stream)
-    return {"ms": ms_per_call(lambda: call(co, phi, tmax, cb, stream=stream)),
-            "alone_ms": ms_per_call(launch)}
+        return call(co, phi, tmax, cb, stream=stream)
+
+    return {"ms": ms_per_call(wrapper),
+            "alone_ms": ms_per_call(alone(wrapper,
+                                          ik.variant_name(query, stream)))}
 
 
 def _model_per_lane(phi, tmax, bounds, cb, chunk_t: int, tile: int,
@@ -309,8 +325,9 @@ def k2_block_order(co, phi, tmax, cb) -> dict:
         kept = ik.heavy_first_launch
         ik.heavy_first_launch = order
         try:
-            launch, _ = ik.prepared_launch("closest", co, phi, tmax, cb,
-                                           stream=True)
+            launch = alone(lambda: ik.closest_hit(co, phi, tmax, cb,
+                                                  stream=True),
+                           "closest_hit_streamed")
         finally:
             ik.heavy_first_launch = kept
         out[key] = ms_per_call(launch)
@@ -351,8 +368,9 @@ def stream_pairs(size: int, device, levels=(4, 5, 6), states=None) -> dict:
                 ("k2_alone_ms", "closest", phi, shapes.F32_HIGHEST, True),
                 ("k3_alone_ms", "any", phi_s, st, False),
                 ("k4_alone_ms", "any", phi_s, st, True)):
-            launch, _ = ik.prepared_launch(query, co, p, tm, cb,
-                                           stream=stream)
+            call = ik.closest_hit if query == "closest" else ik.any_hit
+            launch = alone(lambda: call(co, p, tm, cb, stream=stream),
+                           ik.variant_name(query, stream))
             row[key] = ms_per_call(launch, calls=10, rounds=5)
         out[lv] = row
     return out
@@ -399,7 +417,9 @@ def bounce_times(queries, partition: bool = False, calls: int = 20,
     for co, phi, tm, cb, kw in queries:
         tm = torch.as_tensor(tm, dtype=torch.float32,
                              device=phi.device).expand(phi.shape[1])
-        launch, _ = ik.prepared_launch("closest", co, phi, tm, cb, **kw)
+        name = ik.variant_name("closest", ik.streamed_variant(
+            co.shape[1], kw.get("stream")))
+        launch = alone(lambda: ik.closest_hit(co, phi, tm, cb, **kw), name)
         row = {"live_share": float((tm > 0).float().mean()),
                "kernel_ms": ms_per_call(launch, calls, rounds)}
         if partition:
@@ -473,12 +493,12 @@ def k1_report(size: int, device, sub6=None) -> dict:
     first-bounce rays of sensor config 2) and on cornell-sub6's
     first-bounce rays with stream=False; the exact kernel at the Cornell
     shapes in the same run; K1 against the exact kernel on each set."""
-    from tracer_tpu_torch.ops import intersect, shapes
+    from tracer_tpu_torch.ops import cuda_lib, intersect, shapes
     from tracer_tpu_torch.ops import intersect_kernel as ik
     from tracer_tpu_torch.utils import kernel_cases as kc
-    lib = ik.build()
     hi = shapes.F32_HIGHEST
-    out = {"block": ik.BLOCK, "min_blocks": lib.closest_min_blocks(),
+    out = {"block": ik.BLOCK,
+           "min_blocks": cuda_lib.load().closest_min_blocks(),
            **_entry_resources("closest_hit_kernel")}
     sets = {}
     for key, s in (("cornell", sub_state(0, size, device)),
@@ -562,7 +582,7 @@ def main(argv=None) -> None:
     if args.k1_block_sizes:
         print(json.dumps({"k1_block_sizes": k1_block_sizes()}), flush=True)
         return
-    ik.build()
+    cuda_lib.load()
     if args.k1:
         print(json.dumps(k1_report(args.size, dev)), flush=True)
         return

@@ -32,17 +32,17 @@ def measure(n: int = 1 << 20, device="cuda") -> dict:
     """Run approx_reciprocal on the inputs on `device` and report the
     relative error against the float64 1/x."""
     import torch
-    from tracer_tpu_torch.ops import recip
+    from tracer_tpu_torch.ops import cuda_lib, recip
     device = torch.device(device)
     x = inputs(n)
-    before = recip.launches[recip.NAME]
+    before = cuda_lib.launches[recip.NAME]
     y = recip.approx_reciprocal(torch.as_tensor(x, device=device))
     y = y.cpu().numpy()
     exact = 1.0 / x.astype(np.float64)
     rel = np.abs(y.astype(np.float64) - exact) / np.abs(exact)
     return {
         "backend": device.type,
-        "kernel": recip.launches[recip.NAME] > before,
+        "kernel": cuda_lib.launches[recip.NAME] > before,
         "n": n,
         "max_rel": float(rel.max()),
         "p999_rel": float(np.quantile(rel, 0.999)),

@@ -35,7 +35,7 @@ import torch
 
 import tracer_tpu_torch as T
 from tracer_tpu_torch.engine import integrator, keys
-from tracer_tpu_torch.ops import intersect_kernel as ik
+from tracer_tpu_torch.ops import cuda_lib
 from tracer_tpu_torch.parallel import local
 from tracer_tpu_torch.utils import testscenes
 
@@ -115,7 +115,7 @@ def main(argv=None) -> None:
                              "--device cpu --backend gloo")
         for line in cards():
             print(line, flush=True)
-        ik.build()   # once, before the ranks load it
+        cuda_lib.load()   # once, before the ranks load it
     todo = calls(args.world, single_dev)
     singles = []
     for name, shape, s, arg in todo:
