@@ -10,15 +10,16 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    nvcc-builds csrc/intersect.cu, csrc/prep.cu,
-              csrc/recip.cu and csrc/shade.cu from the checkout into one
-              library; counts
+              csrc/recip.cu, csrc/refill.cu and csrc/shade.cu from the
+              checkout into one library; counts
               each kernel's shared-memory load instructions in cuobjdump
               -sass of it (those of
               K1, K2, K3 and K4 are their scan loops', one triangle per
               iteration: 10 LDS.128 in each copy of the loop the compiler
               emitted, and no narrower load, or the phase fails); K1's
               registers and spills as ptxas printed them; K6 and K7 (the
-              shading) read no shared memory, nor do K8-K10 (the key, the
+              shading) and K13 (the refill) read no shared memory, nor do
+              K8-K10 (the key, the
               deal, the superchunk boxes); K11 and K12 (the schedule and
               the tile order) do, at any width
   3. kernels  the hand kernels against their plain PyTorch versions on
@@ -44,8 +45,9 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               with its rays_traced, iterations, pool lanes P and the live
               share of its lane-iterations; 3 x step_render; checks the
               image and that every kernel launched and no plain intersect
-              or shading version ran, K6 and K7 once a bounce (as often
-              as K3), their counts set to 0 just before the window;
+              or shading or refill version ran, K6, K7 and K13 once a
+              bounce (as often as K3), their counts set to 0 just before
+              the window;
               inside the same window the exact kernel runs once on the
               camera rays, and K1's hits on them, taken before
               the window, must equal its own. Then the pool again from the
@@ -82,6 +84,14 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               launch alone, beside the plain version and the bound of the
               bytes its operands move: the ms, alone_ms, plain_ms and
               bound_ms of the kernels line
+  6a. refill  K13 (csrc/refill.cu, the op refill) on the operands pool
+              iteration 1 of a 16-spp pool render hands it (2,097,152
+              lanes, the idle ones starting), for the Cornell render
+              (config 0) and the capture (config 2, the scanning fan of
+              every lane): against its plain version run on the card,
+              every output bit for bit on every lane; timed as the op
+              (wrapper) and as its launch alone, beside the plain version
+              and the bound of its bytes
   6b. prep    the sorted query's preparation (csrc/prep.cu: K8 the key,
               K9 the deal and gather, K10 the superchunk boxes, K11 the
               per-tile schedule, K12 the tile order) at the pool's
@@ -184,8 +194,8 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               card (tile-only bit for bit, else within rtol 1e-5 with the
               differing pixels printed; sample-sharded within rtol 1e-5;
               points: returns and positions equal, intensity within rtol
-              1e-6), each rank's K1/K3 launches > 0 and no plain
-              intersect version on any rank, each sharded wall beside the
+              1e-6), each rank's K1/K3, K6/K7 and K13 launches > 0 and
+              no plain version on any rank, each sharded wall beside the
               single call's; then one NCCL group of world size 1 that
               reduces a tensor on the card and renders through a (1, 1)
               mesh, bit for bit the single render
@@ -215,7 +225,7 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               process (their walls printed beside), the kernels each
               state needs launched from the exported step and no plain
               version called
- 16. result   a JSON line of the kernels (K1-K7 and the exact
+ 16. result   a JSON line of the kernels (K1-K13 and the exact
               kernel), then the last line
               {"ok": true, "device": {...}}
 
@@ -242,8 +252,9 @@ K1-K4 the operations are the (lane, triangle) tests the answer needs
 (kernel_cases.needed_tests), 85 flops each: for a closest query every
 chunk a ray enters up to its best t; for an any-hit query one chunk per
 occluded lane and every chunk an unoccluded lane enters before tmax.
-K6 and K7 are bound by their bytes alone (shade_bytes: 185 bytes a lane
-for K6 without a fan, 24 for K7); their operations are not counted.
+K6, K7 and K13 are bound by their bytes alone (shade_bytes: 185 bytes a
+lane for K6 without a fan, 24 for K7; refill_bytes: 186 for K13 without
+the fan, 474 with it); their operations are not counted.
 """
 
 import contextlib
@@ -295,6 +306,7 @@ VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
             "any_hit_streamed")
 EXACT = "closest_hit_exact"   # the yardstick, never on the path
 SHADE_KERNELS = ("shade_prepare", "shade_finish")   # K6, K7 (csrc/shade.cu)
+REFILL_KERNELS = ("refill",)   # K13 (csrc/refill.cu)
 # K8-K12, the sorted query's preparation (csrc/prep.cu; ops/intersect_kernel
 # PREP_KERNELS), and those of them that read no shared memory
 PREP_KERNELS = ("lane_key", "lane_deal", "superchunk", "schedule",
@@ -312,6 +324,10 @@ REPLACES = {
                      "(XLA-fused)",
     "shade_finish": "tracer_tpu/engine/direct.py:144 (estimate_direct, after "
                     "its query), :242 (XLA-fused)",
+    # no TPU kernel: XLA fuses the refill's camera sample and lane reset
+    "refill": "none: XLA fuses tracer_tpu/engine/integrator.py:581 "
+              "(start_samples) and tracer_tpu/models/camera.py:107, :132, "
+              ":185",
     # no TPU kernel: XLA fuses the sorted query's preparation
     "lane_key": "tracer_tpu/ops/intersect.py:321 (_perm_key, XLA-fused)",
     "lane_deal": "tracer_tpu/ops/intersect.py:262-406 (the boundary "
@@ -386,22 +402,24 @@ def reset_path_counts(ik):
 
 
 def path_counts(ik, phase):
-    """(launches, plain_calls) of K1-K4 and K6/K7 since reset_path_counts.
-    K6 and K7 launch once a bounce, as the any-hit query does on a scene
-    with a light (K3 or K4), and no plain version runs; else this
-    raises."""
+    """(launches, plain_calls) of K1-K4, K6/K7 and K13 since
+    reset_path_counts. In the pool K6, K7 and K13 launch once a bounce,
+    as the any-hit query does on a scene with a light (K3 or K4), and no
+    plain version runs; else this raises."""
     from tracer_tpu_torch.ops import cuda_lib
-    keep = VARIANTS + (EXACT,) + SHADE_KERNELS
+    keep = VARIANTS + (EXACT,) + SHADE_KERNELS + REFILL_KERNELS
     launches = {k: cuda_lib.launches[k] for k in keep}
     plain = {k: cuda_lib.plain_calls[k] for k in keep}
-    shading = {k: launches[k] for k in SHADE_KERNELS}
-    shade_plain = {k: plain[k] for k in SHADE_KERNELS}
+    per_bounce = SHADE_KERNELS + REFILL_KERNELS
+    shading = {k: launches[k] for k in per_bounce}
+    shade_plain = {k: plain[k] for k in per_bounce}
     bounces = launches["any_hit"] + launches["any_hit_streamed"]
-    log(phase, f"shading kernels: launches {shading}, plain calls "
-        f"{shade_plain}, any-hit launches {bounces}")
-    if (not launches["shade_prepare"] == launches["shade_finish"] == bounces
-            or bounces <= 0 or max(shade_plain.values()) != 0):
-        raise AssertionError("the shading kernels did not run once a bounce")
+    log(phase, f"shading and refill kernels: launches {shading}, plain "
+        f"calls {shade_plain}, any-hit launches {bounces}")
+    if (any(launches[k] != bounces for k in per_bounce) or bounces <= 0
+            or max(shade_plain.values()) != 0):
+        raise AssertionError("the shading and refill kernels did not run "
+                             "once a bounce")
     return launches, plain
 
 
@@ -499,11 +517,13 @@ def shared_loads(path):
         if m:
             cur = next((f"{k}_kernel"
                         for k in VARIANTS + (EXACT, "approx_reciprocal")
-                        + SHADE_KERNELS + PREP_KERNELS
+                        + SHADE_KERNELS + PREP_KERNELS + REFILL_KERNELS
                         if f"{k}_kernel" in m.group(1)), m.group(1))
             flags = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
             if cur.startswith("shade_prepare") and flags:
                 cur += " (lights %s, transmitter %s)" % flags.groups()
+            elif cur.startswith("refill"):
+                cur += " (fan)" if "ILb1E" in m.group(1) else ""
             elif "ILb1E" in m.group(1):
                 cur += " (stats on)"
             counts[cur], code[cur] = {}, []
@@ -523,13 +543,14 @@ def check_wide_loads(loads):
     in their scan loop, one triangle per iteration: 10 LDS.128 in each
     copy of the loop, and no narrower load. The exact kernel (row-major
     stage, 64-bit loads) and K5 are not held to it; K6 and K7 (the
-    shading, one thread a lane) read no shared memory. Of the
+    shading) and K13 (the refill), one thread a lane, read no shared
+    memory. Of the
     preparation's kernels (K8-K12) the key, the deal and the superchunk
     boxes read none; the schedule reads its tile's boxes, warp minima and
     keys, and the tile order its histogram and tallies, at whatever width
     the compiler chose (logged)."""
     for k, c in loads.items():
-        if k.startswith(SHADE_KERNELS + tuple(
+        if k.startswith(SHADE_KERNELS + REFILL_KERNELS + tuple(
                 f"{p}_kernel" for p in PREP_NO_SHARED)):
             if c:
                 raise AssertionError(f"{k} reads shared memory: {c}")
@@ -1159,6 +1180,88 @@ def phase_shade(T, integrator, scene_arrays, card, device):
                 out[name]["max_abs_err"] = max_abs
             del got, want
         del prep_calls, fin_calls, args, fin, what, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def refill_bytes(args, outs):
+    """The bytes K13 must move: each operand read once (the rank, every
+    lane it starts or passes on, the camera operand, seed and nonce) and
+    each output written once (with the scanning fan, its 8 sectors of 36
+    bytes a lane). (186 bytes a lane without the fan, 474 with it.)"""
+    import torch
+    return sum(x.numel() * x.element_size() for x in (*args, *outs)
+               if isinstance(x, torch.Tensor))
+
+
+def phase_refill(T, integrator, scene_arrays, card, device):
+    """K13 (csrc/refill.cu, the op refill) at the main path's shapes: the
+    operands that pool iteration POOL_TIMED of a 16-spp pool render hands
+    engine/refill.refill, P = 2,097,152 lanes of which the idle ones
+    start, for the render (config 0, 512x512) and the capture (config 2,
+    640x480, the scanning fan of every lane). Against its plain version
+    run on the card on the same operands, every output bit for bit on
+    every lane; then timed as the op (wrapper) and as its launch alone,
+    beside the plain version and the bound of the bytes its operands
+    move. Returns name -> fields of the kernels line (the capture's under
+    capture_*)."""
+    import torch
+    from tracer_tpu_torch.engine import refill
+    from tracer_tpu_torch.utils import kernel_timing
+    tris, tm, mats = scene_arrays
+    out = {k: {} for k in REFILL_KERNELS}
+    for conf, (w, h), tag in ((0, (SIZE, SIZE), ""),
+                              (2, (LIDAR_W, LIDAR_H), "capture_")):
+        s = T.init(0, h, w, conf, tris, tm, mats, cam_origin=CAM_ORIGIN,
+                   device=device)
+        calls = []
+        with tap_call(refill, "refill", POOL_TIMED, calls):
+            integrator.render_pooled(
+                s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, w, h,
+                s.transmitter_kind, PROFILE_SPP, s.render_mode,
+                with_points=conf == 2)
+        torch.cuda.synchronize()
+        (ra, rkw, _), = calls
+        args = refill.op_args(*ra, **rkw)
+        n = args[0].shape[0]
+
+        def op():
+            return torch.ops.tracer_tpu_torch.refill(*args)
+
+        def plain():
+            return refill._plain(*args)
+
+        got, want = op(), plain()
+        torch.cuda.synchronize()
+        unequal = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum()
+                          if g.dtype == torch.float32 else (g != r).sum())
+                      for g, r in zip(got, want))
+        started = int((want[1] & ~args[2]).sum())
+        log("refill", f"refill at config {conf}, pool iteration "
+            f"{POOL_TIMED} ({n} lanes, {int(args[2].sum())} active, "
+            f"{started} start): against the plain version on the card, "
+            f"{unequal} values not equal bit for bit over {len(got)} "
+            f"outputs")
+        if unequal:
+            raise AssertionError("refill differs from its plain version")
+        alone = kernel_timing.alone(op, "refill")
+        t = {"ms": ms_per_call(op), "alone_ms": ms_per_call(alone),
+             "plain_ms": ms_per_call(plain, calls=5, rounds=3)}
+        del alone
+        moved = refill_bytes(args, got)
+        t["bound_ms"], t["bound_by"] = bound(moved, 0)
+        t["timed_at"] = (f"pool iteration {POOL_TIMED} of a "
+                         f"{PROFILE_SPP}-spp {w}x{h} config-{conf} render, "
+                         f"{n} lanes")
+        log("refill", f"time refill at config {conf}: wrapper "
+            f"{t['ms']:.4f} ms, alone {t['alone_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({moved / n:.1f} B a lane at 3.35 TB/s), share of the bound "
+            f"alone {100 * t['bound_ms'] / t['alone_ms']:.1f}% (median of "
+            f"{TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back calls, on "
+            f"{card})")
+        out["refill"].update({f"{tag}{f}": v for f, v in t.items()})
+        del got, want, args, calls, s
         torch.cuda.empty_cache()
     return out
 
@@ -2355,17 +2458,17 @@ def points_held_to(phase, label, got, want):
 
 
 def rank_counts(phase, label, r):
-    """Each rank's K1/K3 and K6/K7 launches (> 0) and plain calls of any
-    kernel (0)."""
+    """Each rank's K1/K3, K6/K7 and K13 launches (> 0) and plain calls of
+    any kernel (0)."""
     launches, plain = r["launches"], r["plain_calls"]
-    ran = ("closest_hit", "any_hit") + SHADE_KERNELS
+    ran = ("closest_hit", "any_hit") + SHADE_KERNELS + REFILL_KERNELS
     log(phase, f"{label}: launches per rank "
         f"{ {k: launches[k] for k in ran} }; plain calls per rank "
         f"{ {k: v for k, v in plain.items() if max(v)} }")
     if (min(min(launches[k]) for k in ran) <= 0
             or max(max(v) for v in plain.values()) != 0):
-        raise AssertionError(f"{label}: a rank did not run K1, K3, K6 and "
-                             f"K7, or ran a plain version")
+        raise AssertionError(f"{label}: a rank did not run K1, K3, K6, K7 "
+                             f"and K13, or ran a plain version")
 
 
 def timed(fn):
@@ -2668,14 +2771,17 @@ def aot_states(T, scene_arrays, device):
     sub6 = cornell_sub(SLICE_LEVELS)
     cases = {
         "cornell-512": (SIZE, SIZE, 0, scene_arrays, "auto",
-                        ("closest_hit", "any_hit") + SHADE_KERNELS),
+                        ("closest_hit", "any_hit") + SHADE_KERNELS
+                        + REFILL_KERNELS),
         "cornell-sub6-512": (SIZE, SIZE, 0, sub6, "auto",
                              ("closest_hit_streamed", "any_hit_streamed")
-                             + SHADE_KERNELS + PREP_KERNELS),
+                             + SHADE_KERNELS + PREP_KERNELS
+                             + REFILL_KERNELS),
         "capture-640x480": (LIDAR_W, LIDAR_H, 2, scene_arrays, "auto",
-                            ("closest_hit", "any_hit") + SHADE_KERNELS),
+                            ("closest_hit", "any_hit") + SHADE_KERNELS
+                            + REFILL_KERNELS),
         "lbvh-128": (AOT_LBVH_SIZE, AOT_LBVH_SIZE, 0, scene_arrays, "lbvh",
-                     SHADE_KERNELS),
+                     SHADE_KERNELS + REFILL_KERNELS),
     }
     out = {}
     for name, (w, h, conf, arrays, accel, kernels) in cases.items():
@@ -2876,6 +2982,8 @@ def main():
     torch.cuda.empty_cache()
     shade_times = phase_shade(T, integrator, scene_arrays, card, device)
     clock("shade")
+    refill_times = phase_refill(T, integrator, scene_arrays, card, device)
+    clock("refill")
     prep_times = phase_prep(T, ik, intersect, card, device)
     clock("prep")
     # phase aot's exports run beside the checks that time nothing: the
@@ -2950,6 +3058,12 @@ def main():
                  "source": "tracer_tpu_torch/csrc/shade.cu",
                  "replaces": REPLACES[k], "launches": launches[k],
                  **shade_times[k]} for k in SHADE_KERNELS]
+    # K13: launches of the main path's window, the rest at the operands of
+    # its pool (capture_*: the capture's)
+    kernels += [{"name": f"{k}_kernel", "route": "cuda",
+                 "source": "tracer_tpu_torch/csrc/refill.cu",
+                 "replaces": REPLACES[k], "launches": launches[k],
+                 **refill_times[k]} for k in REFILL_KERNELS]
     # K8-K12: launches of phase prep's render, the rest at the operands of
     # its pool (any_*: the any-hit query's)
     kernels += [{"name": f"{k}_kernel", "route": "cuda",

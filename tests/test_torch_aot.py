@@ -265,12 +265,14 @@ def test_lbvh_walk_while_loop_equals_eager(request):
 def test_exported_step_holds_the_shade_ops(artifact):
     """The exported step's graph, its while_loop bodies included, calls
     tracer_tpu_torch::shade_prepare and shade_finish (the pool's bounce)
-    beside the intersection ops."""
+    and tracer_tpu_torch::refill (the pool's refill) beside the
+    intersection ops."""
     _, _, step = artifact("distance")
     targets = {str(node.target) for m in step.program.modules()
                if isinstance(m, torch.fx.GraphModule)
                for node in m.graph.nodes if node.op == "call_function"}
-    for op in ("shade_prepare", "shade_finish", "closest_hit", "any_hit"):
+    for op in ("shade_prepare", "shade_finish", "refill", "closest_hit",
+               "any_hit"):
         assert f"tracer_tpu_torch.{op}.default" in targets, op
 
 

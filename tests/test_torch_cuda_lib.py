@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tracer_tpu_torch.engine import shade
+from tracer_tpu_torch.engine import refill, shade
 from tracer_tpu_torch.ops import cuda_lib, recip
 from tracer_tpu_torch.ops import intersect_kernel as ik
 
@@ -57,7 +57,8 @@ def test_every_counted_kernel_is_one_cuda_lib_knows():
     point (K2 and K4 through closest_hit_launch and any_hit_launch); every
     name a module of the package launches or counts as plain is one of
     them; every constant a wrapper registers has its getter in csrc/."""
-    wrappers = (*ik.KERNELS, *ik.PREP_KERNELS, *shade.KERNELS, recip.NAME)
+    wrappers = (*ik.KERNELS, *ik.PREP_KERNELS, *shade.KERNELS,
+                *refill.KERNELS, recip.NAME)
     assert sorted(wrappers) == sorted(cuda_lib.KERNELS)
     assert cuda_lib.launches.keys() == cuda_lib.plain_calls.keys() == set(
         cuda_lib.KERNELS)

@@ -17,6 +17,7 @@ import torch
 import tracer_tpu_torch as T
 from tracer_tpu_torch.engine import direct as direct_mod
 from tracer_tpu_torch.engine import integrator as tint
+from tracer_tpu_torch.engine import refill
 from tracer_tpu_torch.engine import shade
 from tracer_tpu_torch.models import lights as lights_mod
 from tracer_tpu_torch.models import scene as scene_mod
@@ -172,8 +173,9 @@ def _lanes(s, n, seed=11):
     w, h = s.width, s.height
     item = torch.arange(n, device=dev)
     smp = torch.div(item, w * h, rounding_mode="floor")
-    state, wavelen, _, origin, d = tint._fresh_samples(
-        s.seed, 3, s.cam, w, h, 0, smp, item - smp * (w * h))
+    state, wavelen, _, origin, d = refill.fresh_samples(
+        s.seed, 3, refill.camera_operand(s.cam, w, h), w, h, 0, smp,
+        item - smp * (w * h))
     r = np.random.default_rng(seed)
     alive = torch.as_tensor(r.random(n) > 0.2, device=dev)
     cum = torch.as_tensor(r.uniform(0, 2, n).astype(np.float32), device=dev)

@@ -24,7 +24,8 @@
 // each of the two BSDF samples only the lobe the lane takes, after every
 // uniform the plain version draws has been drawn.
 //
-// Arithmetic: f32 as the plain version's PyTorch ops compute it on the card.
+// Arithmetic: f32 as the plain version's PyTorch ops compute it on the card
+// (the helpers of csrc/torch_f32.cuh).
 // Each product is __fmul_rn, so that no multiply and add contract into an
 // FMA that rounds once where the ops round twice; divides and square roots
 // are IEEE (no fast math); the math functions are those PyTorch's kernels
@@ -37,6 +38,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_f32.cuh"
+
 namespace {
 
 constexpr int kShadeBlock = 128;
@@ -45,7 +48,6 @@ constexpr int kShadeBlock = 128;
 constexpr float kPi = (float)3.141592653589793;
 constexpr float kTwoPi = (float)6.283185307179586;
 constexpr float kInvPi = (float)(1.0 / 3.141592653589793);
-constexpr float kUnitF = (float)(0.9999 / 16777216.0);   // rng._UNIT_F
 constexpr float kUniformF = (float)(1.0 / 16777216.0);   // rng._UNIFORM_F
 constexpr float kAcneEps = 0.001f;                        // shapes.ACNE_EPS
 constexpr float kTriEps = 0.00001f;                       // shapes.TRI_EPS
@@ -57,73 +59,6 @@ constexpr float kEpsRoughness = 0.004f;
 constexpr int kPdfImpossible = 0, kPdfDelta = 1, kPdfNonzero = 2;
 constexpr float kKindPoint = 0.f, kKindFrustum = 2.f;
 constexpr int kBfL = 1, kBfB = 2, kBoth = 4, kHit = 8, kMiss = 16;
-
-// ---------------------------------------------------------------------------
-// f32 as PyTorch's elementwise ops round it
-
-__device__ __forceinline__ float mul(float a, float b) {
-    return __fmul_rn(a, b);
-}
-
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-    return isnan(x) ? x : fmaxf(x, lo);
-}
-
-__device__ __forceinline__ float clamp(float x, float lo, float hi) {
-    return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float sign(float x) {
-    return (float)((0.f < x) - (x < 0.f));
-}
-
-struct V3 {
-    float x, y, z;
-};
-
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
-    return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
-    return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
-// (N,) * (3, N): the lane's scalar times each component
-__device__ __forceinline__ V3 scale(float s, V3 a) {
-    return {mul(s, a.x), mul(s, a.y), mul(s, a.z)};
-}
-__device__ __forceinline__ V3 select(bool c, V3 a, V3 b) {
-    return {c ? a.x : b.x, c ? a.y : b.y, c ? a.z : b.z};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-    return (mul(a.x, b.x) + mul(a.y, b.y)) + mul(a.z, b.z);
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-    return {mul(a.y, b.z) - mul(a.z, b.y), mul(a.z, b.x) - mul(a.x, b.z),
-            mul(a.x, b.y) - mul(a.y, b.x)};
-}
-// la.v3_normalize with or without eps = 1e-30: eps * eps is 0 in f32, so
-// the clamp only passes a NaN on, which rsqrtf does too
-__device__ __forceinline__ V3 normalize(V3 a) {
-    return scale(rsqrtf(dot(a, a)), a);
-}
-__device__ __forceinline__ float norm(V3 a) { return sqrtf(dot(a, a)); }
-__device__ __forceinline__ float lerp(float a, float b, float r) {
-    return a + mul(r, b - a);
-}
-
-// ---------------------------------------------------------------------------
-// ops/rng.py
-
-__device__ __forceinline__ uint32_t next_u32(uint32_t& s) {
-    s = s * 747796405u + 2891336453u;
-    uint32_t w = ((s >> ((s >> 28) + 4u)) ^ s) * 277803737u;
-    return (w >> 22) ^ w;
-}
-
-__device__ __forceinline__ float next_unit(uint32_t& s) {
-    return mul((float)(next_u32(s) >> 8), kUnitF);
-}
 
 // ---------------------------------------------------------------------------
 // ops/spectrum.lookup_pairs over six (wavelength, value) knots
@@ -413,11 +348,6 @@ __device__ __forceinline__ T at(Lanes x, int i) {
 __device__ __forceinline__ V3 at3(Lanes3 x, int i) {
     const float* p = x.p + (long long)i * x.s;
     return {__ldg(p), __ldg(p + x.rs), __ldg(p + 2 * x.rs)};
-}
-__device__ __forceinline__ void put3(float* p, long long n, int i, V3 v) {
-    p[i] = v.x;
-    p[n + i] = v.y;
-    p[2 * n + i] = v.z;
 }
 
 struct PrepareArgs {

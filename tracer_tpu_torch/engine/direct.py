@@ -63,11 +63,23 @@ def transmitter(cam: cam_mod.Camera, transmitter_kind: str, ray_dir):
     sectors = cam_mod.gen_transmitter_sectors(cam, transmitter_kind, ray_dir)
     if sectors is None:
         return None
+    return as_transmitter(cam, transmitter_kind, stack_sectors(sectors))
+
+
+def stack_sectors(sectors):
+    """gen_transmitter_sectors' list of (a, b, c) V3 tuples as one
+    (TRANSMITTER_SECTORS, 9, N or 1) tensor of a, b, c rows."""
+    return torch.stack([torch.cat(s) for s in sectors])
+
+
+def as_transmitter(cam: cam_mod.Camera, transmitter_kind: str, sectors):
+    """The Transmitter of stacked sectors (stack_sectors) of the kind's
+    fan."""
     kind = float(lights_mod.KIND_FRUSTUM_AREA
                  if transmitter_kind == cam_mod.TRANSMITTER_SCANNING
                  else lights_mod.KIND_DIFFUSE_AREA)
-    return Transmitter(kind, torch.stack([torch.cat(s) for s in sectors]),
-                       cam.conf.trans_theta, cam.conf.trans_emission)
+    return Transmitter(kind, sectors, cam.conf.trans_theta,
+                       cam.conf.trans_emission)
 
 
 def select_lane_light(state, light_table, wavelen,

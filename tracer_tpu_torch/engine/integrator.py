@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from tracer_tpu_torch.engine import direct as direct_mod
+from tracer_tpu_torch.engine import refill as refill_mod
 from tracer_tpu_torch.engine import shade
 from tracer_tpu_torch.models import camera as cam_mod
 from tracer_tpu_torch.models import scene as scene_mod
@@ -410,22 +411,6 @@ def _pool_size(n: int, spp: int, t_pad: int) -> int:
     return max(1, min(n * spp, cap))
 
 
-def _fresh_samples(seed, nonce, cam: cam_mod.Camera, w: int, full_h: int,
-                   row0: int, s, pix):
-    """The camera sample of work item (s, pix) on every lane: stream
-    make_streams(seed, nonce + s, pixel id in the full frame), then the
-    wavelength, the channel and the primary ray as sample_pixels draws
-    them. seed and nonce are python ints or 0-d tensors. Returns (state,
-    wavelen, channel, origin (3, P), dir (3, P))."""
-    jx = (pix % w).to(torch.float32)
-    iy = float(full_h) - ((pix // w).to(torch.float32) + float(row0)) - 1.0
-    state = prng.make_streams_per_lane(seed, prng.as_u32(nonce + s),
-                                       pix + row0 * w)
-    state, wavelen, channel = cam_mod.sample_wavelength(state, cam.conf)
-    state, origin, d = cam_mod.sample_ray(state, cam, (w, full_h), jx, iy)
-    return state, wavelen, channel, origin.expand(3, pix.shape[0]), d
-
-
 # The pool's carry between iterations, in order: the lane state, the
 # points' lane state with_points, then the result stores a render keeps
 # (_store_names).
@@ -462,6 +447,9 @@ def _pool_round(seed, nonce, scene, cam, ambience, w, h, transmitter_kind,
     ambience = ambience.to(dev)
     flash = (direct_mod.transmitter(cam, transmitter_kind, None)
              if transmitter_kind == cam_mod.TRANSMITTER_FLASH else None)
+    cam_op = refill_mod.camera_operand(cam, w, full_h)
+    seed_t = refill_mod.device_scalar(seed, dev)
+    nonce_t = refill_mod.device_scalar(nonce, dev)
     full_iters = -(-total // pool)     # no exit before every item is out
     max_iters = full_iters * PATH_LEN + PATH_LEN + 4
 
@@ -495,40 +483,21 @@ def _pool_round(seed, nonce, scene, cam, ambience, w, h, transmitter_kind,
 
     def body(*carry):
         c = dict(zip(names, carry))
-        active, item, next_item = c["active"], c["item"], c["next_item"]
         with profiling.span("bounce.refill"):
-            # refill: the r-th idle lane takes item next_item + r; the
-            # counter stays on the device. The camera sample is drawn for
-            # every lane and selected: drawing it for the starting lanes
-            # alone needs their indices on the host
-            idle = ~active
-            rank = torch.cumsum(idle, 0)
-            cand = next_item + rank - 1
-            start = idle & (cand < total)
-            next_item = torch.clamp_max(next_item + rank[-1], total)
-            item = torch.where(start, cand, item)
-            s_new = torch.div(item, n, rounding_mode="floor")
-            fresh = _fresh_samples(seed, nonce, cam, w, full_h, row0, s_new,
-                                   item - s_new * n)
-            state = torch.where(start, fresh[0], c["state"])
-            wavelen = torch.where(start, fresh[1], c["wavelen"])
-            chan = torch.where(start, fresh[2], c["chan"])
-            po = torch.where(start, fresh[3], c["po"])
-            pd = torch.where(start, fresh[4], c["pd"])
-            o = torch.where(start, po, c["o"])
-            d = torch.where(start, pd, c["d"])
-            bounce = torch.where(start, 0, c["bounce"])
-            cum_dist = torch.where(start, 0.0, c["cum_dist"])
-            sample_rad = torch.where(start, 0.0, c["sample_rad"])
-            sample_min_d = torch.where(start, float("inf"),
-                                       c["sample_min_d"])
-            active = active | start
+            # the r-th idle lane takes item next_item + r, and a starting
+            # lane its camera sample (engine/refill.py, K13 on the card)
+            rank = torch.cumsum(~c["active"], 0)
+            lanes, sectors = refill_mod.refill(
+                rank, c, cam_op, seed_t, nonce_t, total, n, w, full_h, row0,
+                transmitter_kind)
+            (next_item, active, item, state, bounce, o, d, po, pd, wavelen,
+             chan, cum_dist, sample_rad, sample_min_d) = (
+                 lanes[k] for k in refill_mod.LANES)
             live = c["live"].index_copy(0, c["it"].reshape(1),
                                         active.sum().reshape(1))
-
             # the transmitter fan hangs off the PRIMARY ray
-            trans = (flash if flash is not None else
-                     direct_mod.transmitter(cam, transmitter_kind, pd))
+            trans = (flash if sectors is None else direct_mod.as_transmitter(
+                cam, transmitter_kind, sectors))
         b = _bounce(state, scene, active, bounce == 0, o, d, wavelen,
                     spec.lookup_table(wavelen, ambience), cum_dist, trans)
         with profiling.span("bounce.store"):

@@ -95,38 +95,42 @@ def sample_wavelength(state, conf: CameraConfig):
     """Pick a channel uniformly and probit-sample its wavelength. Returns
     (state, wavelen (N,), channel (N,) int32); the main stream advances
     twice so every later draw keeps its position."""
-    n_channels = conf.sensor_mu.shape[0]
+    return draw_wavelength(state, conf.sensor_mu, conf.sensor_sigma)
+
+
+def draw_wavelength(state, sensor_mu, sensor_sigma):
+    """sample_wavelength over the channels' (C,) mu and sigma rows."""
+    n_channels = sensor_mu.shape[0]
     b0, b1 = prng.salted_pair(state, _SALT_WAVELENGTH)
     state, _ = prng.next_u32(state)
     state, _ = prng.next_u32(state)
     channel = (b0 % n_channels).to(torch.int32)
     p = (b1 >> 8).to(torch.float32) * prng._UNIT_F
-    mu = conf.sensor_mu[channel.long()]
-    sigma = conf.sensor_sigma[channel.long()]
+    mu = sensor_mu[channel.long()]
+    sigma = sensor_sigma[channel.long()]
     wavelen = mu + sigma * torch.special.ndtri(torch.clamp_min(p, 1e-12))
     return state, wavelen, channel
 
 
-def sample_ray(state, cam: Camera, wh, jx, iy):
-    """Thin-lens jittered primary ray per lane, V3 layout.
+class RayBasis(NamedTuple):
+    """What a primary ray takes of the camera (ray_basis): V3 (3, 1)
+    columns, the 0-d lens radius and the jitter's 0-d offset radius."""
+    lower_left: torch.Tensor
+    horizontal: torch.Tensor
+    vertical: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    lens_radius: torch.Tensor
+    origin: torch.Tensor
+    offset_radius: torch.Tensor
 
-    wh: (w, h) python pair; jx/iy: (N,) f32 pixel coords with iy already
-    flipped to h - i - 1. Returns (state, origin (3,N), dir (3,N)), where
-    state is the INCOMING state, un-advanced.
-    """
+
+def ray_basis(cam: Camera, wh) -> RayBasis:
+    """The thin-lens camera's image plane and lens axes for a (w, h)
+    python pair: the part of sample_ray that no lane changes."""
     conf = cam.conf
     w_f, h_f = float(wh[0]), float(wh[1])
     ratio = w_f / h_f
-    state0 = state
-    state, (ox, oy) = prng.in_unit_square(state)
-    x = (jx + ox * conf.offset_radius) / w_f
-    y = (iy + oy * conf.offset_radius) / h_f
-
-    # lens disk from the SAME draws as the jitter
-    theta = ox * (2.0 * math.pi / prng.UNIT_SCALE)
-    lr = torch.sqrt(oy)
-    lx, ly = lr * torch.cos(theta), lr * torch.sin(theta)
-
     lens_radius = conf.aperture / 2.0
     half_height = torch.tan(conf.field_of_view / 2.0)
     half_width = ratio * half_height
@@ -142,10 +146,37 @@ def sample_ray(state, cam: Camera, wh, jx, iy):
                   - fd * w_vec)
     horizontal = (2.0 * half_width * fd) * u
     vertical = (2.0 * half_height * fd) * v
+    return RayBasis(lower_left, horizontal, vertical, u, v, lens_radius,
+                    origin0, conf.offset_radius)
 
-    lens_offset = (lens_radius * lx) * u + (lens_radius * ly) * v
-    origin = origin0 + lens_offset
-    target = lower_left + x * horizontal + y * vertical
+
+def sample_ray(state, cam: Camera, wh, jx, iy):
+    """Thin-lens jittered primary ray per lane, V3 layout.
+
+    wh: (w, h) python pair; jx/iy: (N,) f32 pixel coords with iy already
+    flipped to h - i - 1. Returns (state, origin (3,N), dir (3,N)), where
+    state is the INCOMING state, un-advanced.
+    """
+    return primary_ray(state, ray_basis(cam, wh), wh, jx, iy)
+
+
+def primary_ray(state, basis: RayBasis, wh, jx, iy):
+    """sample_ray's per-lane part over a ray_basis."""
+    w_f, h_f = float(wh[0]), float(wh[1])
+    state0 = state
+    state, (ox, oy) = prng.in_unit_square(state)
+    x = (jx + ox * basis.offset_radius) / w_f
+    y = (iy + oy * basis.offset_radius) / h_f
+
+    # lens disk from the SAME draws as the jitter
+    theta = ox * (2.0 * math.pi / prng.UNIT_SCALE)
+    lr = torch.sqrt(oy)
+    lx, ly = lr * torch.cos(theta), lr * torch.sin(theta)
+
+    lens_offset = ((basis.lens_radius * lx) * basis.u
+                   + (basis.lens_radius * ly) * basis.v)
+    origin = basis.origin + lens_offset
+    target = basis.lower_left + x * basis.horizontal + y * basis.vertical
     return state0, origin, la.v3_normalize(target - origin)
 
 
