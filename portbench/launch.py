@@ -4,18 +4,29 @@ run's own process is rank 0 and starts ranks 1 .. n-1, one process per
 card (rank r on card r), all in one torch.distributed group (NCCL on
 cards, gloo on the CPU in the tests) at tcp://localhost on a free port.
 Every rank makes the same calls (SPMD); rank 0 alone measures, checks
-and prints. On leaving, rank 0 waits for every rank it started, and ends
-them where it failed.
+and prints. On leaving, rank 0 takes its own group down before it waits
+for any rank, since NCCL's teardown waits for every rank of the group:
+after a clean run it destroys the group, then joins the ranks it started
+(where the destroy outlives JOIN_S, it ends the ranks and exits at once,
+with no result); after a failure it ends those ranks first (terminate,
+then kill), then aborts its group (NCCL) or destroys it (gloo), which
+waits on no rank.
 """
 
 from __future__ import annotations
 
 import datetime
 import multiprocessing
+import os
 import socket
+import sys
+import threading
+import time
 
 TIMEOUT_S = 300     # a collective that waits longer fails the run
-JOIN_S = 120        # the ranks' own end, after rank 0's
+JOIN_S = 120        # the teardown and the ranks' own end, after rank 0's
+KILL_S = 10         # a terminated rank's end before it is killed
+EXIT_HUNG = 5       # rank 0's exit code when its own destroy outlives JOIN_S
 
 
 def free_port() -> int:
@@ -40,17 +51,31 @@ def join(rank: int, world: int, port: int, device_type: str):
     return device
 
 
+def leave(failed: bool) -> None:
+    """Take this process's group down. After a failure under NCCL it is
+    aborted, which waits on no other rank; otherwise destroyed, which
+    under NCCL returns once every rank of the group destroys it too."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return
+    if failed and dist.get_backend() == "nccl":
+        dist.distributed_c10d._abort_process_group()
+    else:
+        dist.destroy_process_group()
+
+
 def _rank(rank, world, port, device_type, threads, args):
     import torch
-    import torch.distributed as dist
 
     from portbench import run as bench_run
     torch.set_num_threads(threads)
     device = join(rank, world, port, device_type)
+    failed = True
     try:
         bench_run.drive_cell(*args, device=device, ranks=(rank, world))
+        failed = False
     finally:
-        dist.destroy_process_group()
+        leave(failed)
 
 
 class Group:
@@ -71,16 +96,47 @@ class Group:
             p.start()
         return join(0, self.world, port, self.device_type)
 
-    def __exit__(self, exc_type, *exc):
-        import torch.distributed as dist
+    def end_ranks(self) -> None:
+        """Terminate the ranks still alive, and kill those that outlive
+        KILL_S."""
         for p in self.procs:
-            if exc_type is not None:
+            if p.is_alive():
                 p.terminate()
-            p.join(JOIN_S)
+        deadline = time.monotonic() + KILL_S
+        for p in self.procs:
+            p.join(max(0.0, deadline - time.monotonic()))
             if p.is_alive():
                 p.kill()
                 p.join()
-        dist.destroy_process_group()
+
+    def give_up(self) -> None:
+        """Rank 0's destroy has waited JOIN_S for a rank that never
+        destroys its group: end the ranks, then this process. Under NCCL
+        the destroy may go on waiting for ranks that are gone; ending the
+        process bounds it whatever the backend does."""
+        print(f"portbench: the process group's teardown outlived {JOIN_S} "
+              f"s; ranks 1..{self.world - 1} ended, no result",
+              file=sys.stderr, flush=True)
+        self.end_ranks()
+        os._exit(EXIT_HUNG)
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is None:
+            # the ranks wait in their own destroy for rank 0's
+            deadline = time.monotonic() + JOIN_S
+            watchdog = threading.Timer(JOIN_S, self.give_up)
+            watchdog.start()
+            try:
+                leave(failed=False)
+            finally:
+                watchdog.cancel()
+                watchdog.join()
+            for p in self.procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+            self.end_ranks()
+        else:
+            self.end_ranks()
+            leave(failed=True)
         bad = [p.exitcode for p in self.procs if p.exitcode != 0]
         if bad and exc_type is None:
             raise RuntimeError(f"ranks 1..{self.world - 1} ended with "

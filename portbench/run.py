@@ -52,8 +52,9 @@ def forbidden_modules() -> list:
 def traced(traffic, run, scene, sync, ranks=None):
     """The traced run's calls after the window: a profiled stretch (one
     call; eight frames of the viewer) and, offline, one call of the same
-    work with the rays of its queries tapped. Every rank makes them; the
-    busy time is the ranks' mean."""
+    work with the rays of its queries tapped. Every rank makes them, from
+    a barrier under the profiler; the busy time and the collectives'
+    device time are the ranks' means."""
     from portbench import drive, trace
     from portbench.yardstick import roofline
     n = len(run.iters)
@@ -63,14 +64,15 @@ def traced(traffic, run, scene, sync, ranks=None):
         for _ in range(frames):
             traffic.call(None)
 
+    align = None if ranks is None else (lambda: all_reduce(0.0, "max"))
     with drive.count_iters(run):
-        prof, wall = trace.profiled(stretch, sync)
+        prof, wall = trace.profiled(stretch, sync, align)
     run.trace = trace.reduce(prof, wall)
     run.trace["iters"] = sum(run.iters[n:])
     del run.iters[n:], prof
     if ranks is not None:
-        run.trace["busy_s"] = all_reduce(run.trace["busy_s"], "sum") \
-            / ranks[1]
+        for k in ("busy_s", "collective_s"):
+            run.trace[k] = all_reduce(run.trace[k], "sum") / ranks[1]
     peaks = roofline.peaks(run.card)
     if run.kind == "frames" or peaks is None:
         return
@@ -142,7 +144,22 @@ def drive_cell(cell, seed: int, seconds: float, trace: bool, t0: float,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if ranks is not None:
+        check_ranks_modules(ranks)
     return run, scene
+
+
+def check_ranks_modules(ranks) -> None:
+    """Ranks 1 .. n-1 held to main()'s rule for rank 0's modules, once
+    their window has closed: a rank that loaded JAX or the JAX package
+    names them, and rank 0 raises, so that the run prints no result."""
+    found = forbidden_modules() if ranks[0] else []
+    if found:
+        print(f"portbench: rank {ranks[0]} loaded modules of JAX or the "
+              f"JAX package: {found}", file=sys.stderr, flush=True)
+    if all_reduce(float(bool(found)), "max") > 0 and ranks[0] == 0:
+        raise RuntimeError("a rank loaded modules of JAX or the JAX "
+                           "package")
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float,

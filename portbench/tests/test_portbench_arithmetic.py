@@ -1,5 +1,6 @@
 """The metrics' arithmetic on made-up runs: a rate over whole calls, a
-percentile over all frames, the busy union, the check's gaps."""
+percentile over all frames, the busy union, the profiler's events
+reduced, the collectives' device time, the check's gaps."""
 
 import math
 
@@ -70,6 +71,97 @@ def test_busy_union_counts_overlaps_once():
     spans = [(0, 10), (5, 15), (20, 30), (25, 26), (40, 41)]
     assert trace.union(spans) == [[0, 15], [20, 30], [40, 41]]
     assert sum(b - a for a, b in trace.union(spans)) == 26
+
+
+class Event:
+    """One raw profiler event as trace.reduce reads it."""
+
+    def __init__(self, device, name, start, end, corr=0, link=0):
+        self.device, self.n, self.a, self.b = device, name, start, end
+        self.corr, self.link = corr, link
+
+    def device_type(self):
+        return self.device
+
+    def name(self):
+        return self.n
+
+    def start_ns(self):
+        return self.a
+
+    def duration_ns(self):
+        return self.b - self.a
+
+    def correlation_id(self):
+        return self.corr
+
+    def linked_correlation_id(self):
+        return self.link
+
+
+def reduced(events):
+    from types import SimpleNamespace
+    results = SimpleNamespace(events=lambda: events)
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=results))
+    return trace.reduce(prof, 1e-3)
+
+
+def test_reduce_reads_the_collectives_apart_and_the_rest_as_before():
+    """An NCCL kernel counts in busy, device ops and the breakdown as
+    any op does, and its device time alone in collective_s; c10d's
+    device annotation that mirrors it counts there once, as before, and
+    not in collective_s."""
+    from torch.autograd import DeviceType
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [
+        Event(cpu, "tracer_tpu_torch::closest_hit", 0, 100, corr=1),
+        Event(cpu, "cudaLaunchKernel", 10, 20, corr=2),
+        Event(cuda, "closest_hit_kernel", 50, 150, link=2),
+        Event(cuda, "ncclDevKernel_AllReduce_Sum_f32_RING_LL(x)", 140, 400),
+        Event(cuda, "ncclDevKernel_AllReduce_Max_i32_RING_LL(x)", 500, 530),
+        Event(cuda, "nccl:all_reduce", 499, 531),
+        Event(cuda, "elementwise_kernel", 600, 610)]
+    r = reduced(events)
+    assert r["busy_s"] == pytest.approx((400 - 50 + 32 + 10) * 1e-9)
+    assert r["device_ops"] == 5 and r["window_s"] == 1e-3
+    assert r["op_device_s"] == {"closest": pytest.approx(100e-9),
+                                "any": 0.0}
+    assert r["collective_s"] == pytest.approx((260 + 30) * 1e-9)
+    assert r["breakdown"]["device_ops"][0] == [
+        "ncclDevKernel_AllReduce_Sum_f32_RING_LL(x)", pytest.approx(260e-9)]
+    assert reduced(events[:3] + events[-1:])["collective_s"] == 0.0
+
+
+def test_reduce_leaves_out_the_ranks_barrier():
+    """Device ops that ended before the ALIGN span closed (the ranks'
+    barrier before the stretch, which waits out the profiler's start)
+    count nowhere; the stretch's ops count as they would alone."""
+    from torch.autograd import DeviceType
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    stretch = [
+        Event(cpu, "cudaLaunchKernel", 210, 220, corr=2),
+        Event(cuda, "elementwise_kernel", 250, 300, link=2),
+        Event(cuda, "ncclDevKernel_AllReduce_Sum_f32_RING_LL(x)", 300, 380),
+        Event(cuda, "elementwise_kernel", 400, 410)]
+    barrier = [
+        Event(cpu, trace.ALIGN, 0, 200),
+        Event(cuda, "Memcpy HtoD (Pageable -> Device)", 5, 6),
+        Event(cuda, "ncclDevKernel_AllReduce_Max_f64_RING_LL(x)", 10, 190),
+        Event(cuda, "Memcpy DtoH (Device -> Pageable)", 191, 192)]
+    alone, after = reduced(stretch), reduced(barrier + stretch)
+    assert after["collective_s"] == pytest.approx(80e-9)
+    for k in ("busy_s", "device_ops", "collective_s", "breakdown"):
+        assert after[k] == alone[k], k
+
+
+def test_collectives_ms_per_call():
+    run = offline_run()
+    assert read("mesh.reduce_device_ms_per_call", run) is None  # none ran
+    run.trace["collective_s"] = 0.0
+    assert read("mesh.reduce_device_ms_per_call", run) is None
+    run.trace["collective_s"] = 0.0125
+    assert read("mesh.reduce_device_ms_per_call", run) == pytest.approx(12.5)
+    assert read("mesh.reduce_device_ms_per_call", viewer_run([5.0])) is None
 
 
 def test_check_gaps_p90_and_off_share():

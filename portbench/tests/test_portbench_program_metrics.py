@@ -146,6 +146,9 @@ def test_a_traced_run_reports_them(cell, mix):
 
 
 def test_the_manifest_names_the_five_metrics():
+    """Each of the five names the box's cells of its kind among its
+    workloads (a later cell may join them), with its source, the metric
+    it moves and its layer."""
     per_layer = {m["name"]: m for m in BENCH["per_layer"]}
     offline = ["cornell-box.render-256spp", "cornell-box.capture-100spp"]
     viewer = ["cornell-box.viewer-800x600"]
@@ -160,7 +163,7 @@ def test_the_manifest_names_the_five_metrics():
                                        viewer)}
     for name, (source, moves, cells) in want.items():
         m = per_layer[name]
-        assert (m["source"], m["moves"], m["workloads"], m["layer"]) == (
-            source, moves, cells, "integrator")
+        assert (m["source"], m["moves"], m["layer"]) == (
+            source, moves, "integrator")
+        assert set(cells) <= set(m["workloads"]), (name, m["workloads"])
         assert (harness.HERE / "metrics" / f"{name}.py").is_file()
-    assert list(per_layer)[-5:] == list(want)

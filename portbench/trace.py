@@ -17,6 +17,11 @@ QUERY_OPS = {"closest": "tracer_tpu_torch::closest_hit",
 TOP = 10
 NAME_CHARS = 160       # a device op's name is cut to this in the breakdown
 PROFILER_OWN = ("Activity Buffer Request",)
+# NCCL's kernels (ncclDevKernel_AllReduce_Sum_f32_RING_LL, or ncclKernel_...
+# before NCCL 2.19); not c10d's device annotation "nccl:all_reduce" that
+# mirrors each of them
+COLLECTIVE_KERNELS = ("ncclDevKernel", "ncclKernel")
+ALIGN = "portbench.align"   # the ranks' barrier before a profiled stretch
 
 
 def union(spans):
@@ -30,11 +35,19 @@ def union(spans):
     return out
 
 
-def profiled(fn, sync):
-    """Run fn() under the profiler; returns (profiler, wall seconds)."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled(fn, sync, align=None):
+    """Run fn() under the profiler; returns (profiler, wall seconds).
+    align: a barrier of the cell's ranks, run under the profiler in a span
+    of its own (ALIGN) before fn, so that the ranks' starts of the
+    profiler, whose cost varies from rank to rank, are waited for there
+    and not in fn's first collective. reduce() leaves it out."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if align is not None:
+            with record_function(ALIGN):
+                align()
+                sync()
         t0 = time.perf_counter()
         fn()
         sync()
@@ -49,10 +62,13 @@ def _short(name: str) -> str:
 def reduce(prof, wall: float) -> dict:
     """busy_s, window_s, the device ops counted, each query op's device
     seconds (the kernels launched inside its outermost host events, its
-    own and its children's), and the breakdown: the TOP device ops by
-    time and the TOP longest idle gaps of the card, each named by the
-    innermost host op running at the gap's middle ("python" where none
-    was). Reads the profiler's raw events, not its event tree."""
+    own and its children's), the device seconds of NCCL's kernels
+    (collective_s: ops whose name begins with one of COLLECTIVE_KERNELS),
+    and the breakdown: the TOP device ops by time and the TOP longest
+    idle gaps of the card, each named by the innermost host op running
+    at the gap's middle ("python" where none was). Device ops that ended
+    before the ALIGN span closed ran before the stretch and are left out.
+    Reads the profiler's raw events, not its event tree."""
     import bisect
 
     import numpy as np
@@ -67,6 +83,9 @@ def reduce(prof, wall: float) -> dict:
                 e.name() not in PROFILER_OWN:
             host.append((e.start_ns(), e.start_ns() + e.duration_ns(),
                          e.correlation_id(), e.name()))
+    cut = max((b for _, b, _, n in host if n == ALIGN), default=None)
+    if cut is not None:
+        dev = [d for d in dev if d[1] > cut]
     merged = union((a, b) for a, b, _, _ in dev)
     busy_ns = sum(b - a for a, b in merged)
 
@@ -86,6 +105,9 @@ def reduce(prof, wall: float) -> dict:
                 inside.add(corr)
         op_s[q] = sum(b - a for a, b, link, _ in dev if link in inside) * 1e-9
 
+    collective_ns = sum(b - a for a, b, _, name in dev
+                        if name.startswith(COLLECTIVE_KERNELS))
+
     gaps = sorted(((b[0] - a[1], a[1], b[0])
                    for a, b in zip(merged, merged[1:])), reverse=True)[:TOP]
     if host:
@@ -103,6 +125,7 @@ def reduce(prof, wall: float) -> dict:
         named.append([name, length * 1e-9])
     return {"busy_s": busy_ns * 1e-9, "window_s": wall,
             "device_ops": len(dev), "op_device_s": op_s,
+            "collective_s": collective_ns * 1e-9,
             "breakdown": {"device_ops": [[_short(k), v * 1e-9]
                                          for k, v in top],
                           "idle_gaps": named}}
