@@ -9,7 +9,7 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
 (utils/kernel_timing.alone), for every kernel alike:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc-builds csrc/intersect.cu, csrc/prep.cu,
+  2. build    nvcc-builds csrc/bvh.cu, csrc/intersect.cu, csrc/prep.cu,
               csrc/recip.cu, csrc/refill.cu and csrc/shade.cu from the
               checkout into one library; counts
               each kernel's shared-memory load instructions in cuobjdump
@@ -18,7 +18,8 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               iteration: 10 LDS.128 in each copy of the loop the compiler
               emitted, and no narrower load, or the phase fails); K1's
               registers and spills as ptxas printed them; K6 and K7 (the
-              shading) and K13 (the refill) read no shared memory, nor do
+              shading), K13 (the refill) and K14/K15 (the LBVH walk) read
+              no shared memory, nor do
               K8-K10 (the key, the
               deal, the superchunk boxes); K11 and K12 (the schedule and
               the tile order) do, at any width
@@ -170,8 +171,8 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               the queries of the iterations phase 5 picks (2,097,152 and
               4,194,304 lanes) against
               the plain version and the exact kernel as in phase 5
- 10. lbvh     accel="lbvh" (plain torch) built on the card for the Cornell
-              box and subdivide(cornell_like, 3): closest hit on the
+ 10. lbvh     accel="lbvh" built on the card for the Cornell box and
+              subdivide(cornell_like, 3): closest hit on the
               camera and first-bounce rays and any hit on the 2N shadow
               lanes against the dense accel (K1/K3): ok equal off boundary
               lanes, t within 1e-5 relative, another triangle only inside
@@ -180,7 +181,19 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               |a| <= 8 x TRI_EPS in float64, and is printed with that
               triangle's |a|, u, v and t); a 64x64 4-spp
               render whose mean lies within 3% of the dense accel's; build
-              ms and ms per query (utils/profiling.PhaseTimer)
+              ms and ms per query (utils/profiling.PhaseTimer). Then the
+              LBVH walk's kernels, K14 and K15 (csrc/bvh.cu, the ops
+              lbvh_closest_hit / lbvh_any_hit), against their plain
+              version (ops/bvh._traverse run on the card), every lane bit
+              for bit (the leaf and t, the hit flag): on the box's camera,
+              first-bounce and shadow rays, and on the queries pool
+              iteration 1 of a 16-spp 512x512 render of SPD tetra at size
+              factor 10 (portbench/scenes/spd_tetra_sf10.py, 4,194,306
+              triangles, past the dense cap, so "auto" builds the LBVH)
+              hands the LBVH: 524,288 closest and 1,048,576 shadow lanes;
+              there each kernel timed as the op (wrapper) and its launch
+              alone, beside one call of the plain version and the bound
+              of the bytes it must move
  11. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
               card, with either accel, resumes the next step bit for bit
               (run after phase 7's checks, beside phase 15's exports)
@@ -212,7 +225,7 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               the accumulation on and one frame taken: the 512x512
               Cornell box (K1/K3), cornell-sub6 at 512x512 (K2/K4), the
               640x480 config-2 capture in distance mode (K1/K3) and a
-              128x128 LBVH box (no kernel); the four exported at once by
+              128x128 LBVH box (K14/K15); the four exported at once by
               processes of their own at the lowest priority, started
               before phase 7's checks and waited for after them and
               phase 11, beside work that times nothing (seconds and bytes
@@ -225,7 +238,7 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               process (their walls printed beside), the kernels each
               state needs launched from the exported step and no plain
               version called
- 16. result   a JSON line of the kernels (K1-K13 and the exact
+ 16. result   a JSON line of the kernels (K1-K15 and the exact
               kernel), then the last line
               {"ok": true, "device": {...}}
 
@@ -254,7 +267,10 @@ chunk a ray enters up to its best t; for an any-hit query one chunk per
 occluded lane and every chunk an unoccluded lane enters before tmax.
 K6, K7 and K13 are bound by their bytes alone (shade_bytes: 185 bytes a
 lane for K6 without a fan, 24 for K7; refill_bytes: 186 for K13 without
-the fan, 474 with it); their operations are not counted.
+the fan, 474 with it); their operations are not counted. So are K14 and
+K15 (lbvh_bytes): every triangle read once (36 bytes), each lane's ray
+and tmax read and its answer written (24 + 4 + 12 bytes closest, 24 + 4
++ 1 any); the walk's node reads and tests are not counted.
 """
 
 import contextlib
@@ -307,6 +323,7 @@ VARIANTS = ("closest_hit", "closest_hit_streamed", "any_hit",
 EXACT = "closest_hit_exact"   # the yardstick, never on the path
 SHADE_KERNELS = ("shade_prepare", "shade_finish")   # K6, K7 (csrc/shade.cu)
 REFILL_KERNELS = ("refill",)   # K13 (csrc/refill.cu)
+LBVH_KERNELS = ("lbvh_closest", "lbvh_any")   # K14, K15 (csrc/bvh.cu)
 # K8-K12, the sorted query's preparation (csrc/prep.cu; ops/intersect_kernel
 # PREP_KERNELS), and those of them that read no shared memory
 PREP_KERNELS = ("lane_key", "lane_deal", "superchunk", "schedule",
@@ -338,6 +355,10 @@ REPLACES = {
                 "(_tile_chunk_order, XLA)",
     "heavy_first": "none: the port's own tile order "
                    "(ops/intersect_kernel.heavy_first)",
+    # no TPU kernel: XLA walks the LBVH
+    "lbvh_closest": "none: XLA runs tracer_tpu/ops/bvh.py:_traverse "
+                    "(closest_hit)",
+    "lbvh_any": "none: XLA runs tracer_tpu/ops/bvh.py:_traverse (any_hit)",
 }
 # Published H100 SXM rates (NVIDIA's data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -518,6 +539,7 @@ def shared_loads(path):
             cur = next((f"{k}_kernel"
                         for k in VARIANTS + (EXACT, "approx_reciprocal")
                         + SHADE_KERNELS + PREP_KERNELS + REFILL_KERNELS
+                        + LBVH_KERNELS
                         if f"{k}_kernel" in m.group(1)), m.group(1))
             flags = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
             if cur.startswith("shade_prepare") and flags:
@@ -543,15 +565,15 @@ def check_wide_loads(loads):
     in their scan loop, one triangle per iteration: 10 LDS.128 in each
     copy of the loop, and no narrower load. The exact kernel (row-major
     stage, 64-bit loads) and K5 are not held to it; K6 and K7 (the
-    shading) and K13 (the refill), one thread a lane, read no shared
-    memory. Of the
+    shading), K13 (the refill) and K14/K15 (the LBVH walk), one thread a
+    lane, read no shared memory. Of the
     preparation's kernels (K8-K12) the key, the deal and the superchunk
     boxes read none; the schedule reads its tile's boxes, warp minima and
     keys, and the tile order its histogram and tallies, at whatever width
     the compiler chose (logged)."""
     for k, c in loads.items():
-        if k.startswith(SHADE_KERNELS + REFILL_KERNELS + tuple(
-                f"{p}_kernel" for p in PREP_NO_SHARED)):
+        if k.startswith(SHADE_KERNELS + REFILL_KERNELS + LBVH_KERNELS
+                        + tuple(f"{p}_kernel" for p in PREP_NO_SHARED)):
             if c:
                 raise AssertionError(f"{k} reads shared memory: {c}")
             continue
@@ -2282,8 +2304,8 @@ def grazing_lanes(label, mask, dense, phi, tmax, closest):
 
 
 def phase_lbvh(T, integrator, intersect, scene_arrays, card, device):
-    """accel="lbvh" on the card (plain torch, no hand kernel) against the
-    dense accel (K1/K3): the Cornell box and subdivide(cornell_like, 3),
+    """accel="lbvh" on the card (its walk K14/K15) against the dense
+    accel (K1/K3): the Cornell box and subdivide(cornell_like, 3),
     on the camera rays, the first-bounce rays and the 2N shadow lanes of
     kernel_cases.render_rays at 512x512."""
     import torch
@@ -2381,6 +2403,145 @@ def phase_lbvh(T, integrator, intersect, scene_arrays, card, device):
             raise AssertionError(f"{label}: the LBVH render's mean is not "
                                  f"the dense render's")
         torch.cuda.empty_cache()
+
+
+def lbvh_bytes(args, any_hit):
+    """The bytes K14 or K15 must move on the op's operands args: every
+    triangle read once, each lane's ray and tmax read and its answer
+    written (the leaf and t, or the hit flag)."""
+    tris, n = args[5], args[-1].shape[1]
+    return tris.numel() * 4 + n * (24 + 4 + (1 if any_hit else 12))
+
+
+def lbvh_unequal(got, want, any_hit):
+    """Lanes where the op's answer differs from the plain version's in
+    any bit: the leaf or t's bits (closest), the hit flag (any)."""
+    import torch
+    if any_hit:
+        return int((got != want[0]).sum())
+    leaf, t = got
+    return int(((leaf != want[0])
+                | (t.view(torch.int32) != want[1].view(torch.int32))).sum())
+
+
+def lbvh_held(label, args, any_hit):
+    """K14 (closest) or K15 (any) on the operands args against the plain
+    version run on the card, every lane bit for bit; raises where a lane
+    differs. Returns (the op, the plain version) as callables."""
+    import torch
+    from tracer_tpu_torch.ops import bvh as bvh_mod
+    name = LBVH_KERNELS[int(any_hit)]
+    ops = torch.ops.tracer_tpu_torch
+
+    def op():
+        return (ops.lbvh_any_hit if any_hit else ops.lbvh_closest_hit)(*args)
+
+    def plain():
+        return bvh_mod._traverse(*args, any_hit=any_hit)
+
+    got, want = op(), plain()
+    torch.cuda.synchronize()
+    bad = lbvh_unequal(got, want, any_hit)
+    n = args[-1].shape[1]
+    hits = int((got if any_hit else got[0] >= 0).sum())
+    log("lbvh", f"{name}_kernel on {label}: {n} lanes, {hits} "
+        f"{'occluded' if any_hit else 'hit'}; against the plain version on "
+        f"the card, {bad} lanes not equal bit for bit")
+    if bad:
+        raise AssertionError(f"{name}_kernel differs from its plain version "
+                             f"on {label}")
+    return op, plain
+
+
+def phase_lbvh_kernels(T, integrator, scene_arrays, card, device):
+    """K14/K15 (csrc/bvh.cu) against their plain version, bit for bit on
+    every lane: the LBVH box's camera, first-bounce and shadow rays, and
+    the queries pool iteration POOL_TIMED of a PROFILE_SPP-spp 512x512
+    render of SPD tetra at size factor 10 hands the LBVH; timed there.
+    Returns name -> fields of the kernels line."""
+    import torch
+    from portbench.scenes import spd_tetra_sf10
+    from tracer_tpu_torch.ops import bvh as bvh_mod
+    from tracer_tpu_torch.ops import cuda_lib, shapes
+    from tracer_tpu_torch.utils import kernel_cases as kc
+    from tracer_tpu_torch.utils import kernel_timing
+    sl = T.init(0, SIZE, SIZE, 0, *scene_arrays, cam_origin=CAM_ORIGIN,
+                accel="lbvh", device=device)
+    cam, first, (so, sd, st) = kc.render_rays(sl)
+    for label, (tmax, o, d), any_hit in (
+            ("the box's camera rays", (shapes.F32_HIGHEST, *cam), False),
+            ("the box's first-bounce rays", (shapes.F32_HIGHEST, *first),
+             False),
+            ("the box's shadow lanes", (st, so, sd), True)):
+        lbvh_held(label, bvh_mod.op_args(sl.scene.accel, tmax, o, d), any_hit)
+    del sl, cam, first, so, sd, st
+
+    t0 = time.perf_counter()
+    arrays = spd_tetra_sf10.build()
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s = T.init(0, SIZE, SIZE, 0, *arrays, cam_origin=spd_tetra_sf10
+               .CAMERA_ORIGIN, device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    if not isinstance(s.scene.accel, bvh_mod.LBVH):
+        raise AssertionError("accel='auto' did not build the LBVH past "
+                             "the dense cap")
+    n_tris = arrays[0].shape[0]
+    log("lbvh", f"SPD tetra at size factor 10: {n_tris} triangles built in "
+        f"{t_scene:.2f} s, api.init (accel 'auto': the LBVH) "
+        f"{t_init:.2f} s; memory allocated {torch.cuda.memory_allocated():,}"
+        f" bytes")
+    kept = {}
+    cuda_lib.reset_counts()
+    with tap_call(bvh_mod, "closest_hit", POOL_TIMED, kept.setdefault(
+            "closest", [])), tap_call(bvh_mod, "any_hit", POOL_TIMED,
+                                      kept.setdefault("any", [])):
+        t0 = time.perf_counter()
+        out = integrator.render_pooled(
+            s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, SIZE, SIZE,
+            s.transmitter_kind, PROFILE_SPP, s.render_mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: cuda_lib.launches[k] for k in LBVH_KERNELS}
+    log("lbvh", f"SPD tetra sf10 {PROFILE_SPP}-spp {SIZE}x{SIZE} pool "
+        f"render: {wall:.3f} s, {out['iters']} iterations, P = "
+        f"{out['lanes']}, launches {launches}, plain calls "
+        f"{sum(cuda_lib.plain_calls.values())}")
+    if min(launches.values()) <= 0 or sum(cuda_lib.plain_calls.values()):
+        raise AssertionError("the LBVH render did not run on K14/K15 alone")
+    times = {}
+    for q, name in zip(("closest", "any"), LBVH_KERNELS):
+        (a, kw, _), = kept[q]
+        any_hit = q == "any"
+        args = bvh_mod.op_args(*a, **kw)
+        label = (f"SPD tetra sf10's pool iteration {POOL_TIMED} {q} query")
+        op, plain = lbvh_held(label, args, any_hit)
+        alone = kernel_timing.alone(op, name)
+        t = {"launches": launches[name], "ms": ms_per_call(op, calls=5),
+             "alone_ms": ms_per_call(alone, calls=5)}
+        del alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        t["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        moved = lbvh_bytes(args, any_hit)
+        t["bound_ms"], t["bound_by"] = bound(moved, 0)
+        n = args[-1].shape[1]
+        t["timed_at"] = (f"pool iteration {POOL_TIMED} of a {PROFILE_SPP}-"
+                         f"spp {SIZE}x{SIZE} render of SPD tetra at size "
+                         f"factor 10 ({n_tris} triangles), {n} lanes")
+        log("lbvh", f"time {name}_kernel: wrapper {t['ms']:.4f} ms, alone "
+            f"{t['alone_ms']:.4f} ms, plain (one call) {t['plain_ms']:.1f} "
+            f"ms, bound {t['bound_ms']:.4f} ms ({moved:,} bytes at 3.35 "
+            f"TB/s), share of the bound alone "
+            f"{100 * t['bound_ms'] / t['alone_ms']:.2f}% (median of "
+            f"{TIME_ROUNDS} rounds of 5 back-to-back calls, on {card})")
+        times[name] = t
+    del s, kept, arrays
+    torch.cuda.empty_cache()
+    return times
 
 
 def phase_checkpoint(T, scene_arrays, device):
@@ -2781,7 +2942,7 @@ def aot_states(T, scene_arrays, device):
                             ("closest_hit", "any_hit") + SHADE_KERNELS
                             + REFILL_KERNELS),
         "lbvh-128": (AOT_LBVH_SIZE, AOT_LBVH_SIZE, 0, scene_arrays, "lbvh",
-                     SHADE_KERNELS + REFILL_KERNELS),
+                     LBVH_KERNELS + SHADE_KERNELS + REFILL_KERNELS),
     }
     out = {}
     for name, (w, h, conf, arrays, accel, kernels) in cases.items():
@@ -3013,6 +3174,7 @@ def main():
     clock("lidar")
     torch.cuda.empty_cache()
     phase_lbvh(T, integrator, intersect, scene_arrays, card, device)
+    lbvh_times = phase_lbvh_kernels(T, integrator, scene_arrays, card, device)
     clock("lbvh")
     points = phase_parallel(T, integrator, scene_arrays, card, device)
     clock("parallel")
@@ -3070,6 +3232,12 @@ def main():
                  "source": "tracer_tpu_torch/csrc/prep.cu",
                  "replaces": REPLACES[k], **prep_times[k]}
                 for k in PREP_KERNELS]
+    # K14/K15: launches of phase lbvh's render of SPD tetra at size factor
+    # 10, the rest at the operands of its pool
+    kernels += [{"name": f"{k}_kernel", "route": "cuda",
+                 "source": "tracer_tpu_torch/csrc/bvh.cu",
+                 "replaces": REPLACES[k], **lbvh_times[k]}
+                for k in LBVH_KERNELS]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was not launched")
     log("result", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")

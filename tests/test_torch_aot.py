@@ -248,10 +248,10 @@ def test_lbvh_walk_while_loop_equals_eager(request):
     tris, _, _ = testscenes.cornell_like()
     bvh = tbvh.build(torch.as_tensor(tris))
     r = np.random.default_rng(2)
-    o = torch.as_tensor(r.uniform(-0.8, 0.8, (257, 3)).astype(np.float32))
-    o[:, 1] += 1.0
-    d = torch.as_tensor(r.normal(size=(257, 3)).astype(np.float32))
-    d = d / d.norm(dim=1, keepdim=True)
+    o = torch.as_tensor(r.uniform(-0.8, 0.8, (3, 257)).astype(np.float32))
+    o[1] += 1.0
+    d = torch.as_tensor(r.normal(size=(3, 257)).astype(np.float32))
+    d = d / d.norm(dim=0, keepdim=True)
     tmax = torch.as_tensor(r.uniform(0.0, 3.0, 257).astype(np.float32))
     want = (tbvh.closest_hit(bvh, tmax, o, d), tbvh.any_hit(bvh, tmax, o, d))
     calls = request.getfixturevalue("traced_loop")
@@ -274,6 +274,21 @@ def test_exported_step_holds_the_shade_ops(artifact):
     for op in ("shade_prepare", "shade_finish", "refill", "closest_hit",
                "any_hit"):
         assert f"tracer_tpu_torch.{op}.default" in targets, op
+
+
+def test_exported_lbvh_step_holds_the_walk_ops(artifact):
+    """The exported step of an LBVH state calls the walk's ops,
+    tracer_tpu_torch::lbvh_closest_hit and lbvh_any_hit, and holds one
+    while_loop alone, the pool's: the walk is no loop of the graph."""
+    _, _, step = artifact("lbvh")
+    nodes = [node for m in step.program.modules()
+             if isinstance(m, torch.fx.GraphModule)
+             for node in m.graph.nodes if node.op == "call_function"]
+    targets = {str(node.target) for node in nodes}
+    for op in ("lbvh_closest_hit", "lbvh_any_hit", "shade_prepare",
+               "refill"):
+        assert f"tracer_tpu_torch.{op}.default" in targets, op
+    assert sum("while_loop" in str(node.target) for node in nodes) == 1
 
 
 def test_exported_step_holds_the_prep_ops(monkeypatch):

@@ -2,7 +2,11 @@
 ops/bvh.py, the boxes of ops/shapes.py, the scene's dispatch) against
 the JAX package on the same numpy triangles: the cases of
 tests/test_bvh.py. Trees and node boxes are equal exactly; hits agree
-with the port's dense accel and with the JAX LBVH."""
+with the port's dense accel and with the JAX LBVH. The walk's ops
+(tracer_tpu_torch::lbvh_closest_hit / lbvh_any_hit): their CPU version
+is the plain walk, counted; their fake rules; a scaled SPD tetra against
+a brute-force test of every triangle; "auto" builds the LBVH past the
+dense cap."""
 
 import numpy as np
 import jax
@@ -24,7 +28,8 @@ from tracer_tpu_torch.ops import intersect as tintersect
 from tracer_tpu_torch.ops import linalg as tla
 from tracer_tpu_torch.ops import radix_tree as tradix
 from tracer_tpu_torch.ops import shapes as tshapes
-from tracer_tpu_torch.utils import convert
+from tracer_tpu_torch.ops import cuda_lib
+from tracer_tpu_torch.utils import convert, profiling
 
 torch.set_num_threads(2)
 
@@ -106,8 +111,9 @@ def test_boxes_match_jax():
     d[::5, 0] = 0.0   # axis-parallel rays: the slab test divides by zero
     for tm in (1e30, 2.0):
         # boxes wide enough for about half the rays to cross them
-        got = tshapes.hit_aabb(torch.tensor(tm), torch.as_tensor(o),
-                               torch.as_tensor(d), tmin - 2.0, tmax + 2.0)
+        got = tshapes.hit_aabb_v(torch.tensor(tm), torch.as_tensor(o).T,
+                                 1.0 / torch.as_tensor(d).T,
+                                 (tmin - 2.0).T, (tmax + 2.0).T)
         want = jshapes.hit_aabb(jnp.float32(tm), jnp.asarray(o),
                                 jnp.asarray(d), jmin - 2.0, jmax + 2.0)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -145,7 +151,9 @@ def test_lbvh_closest_matches_dense_and_jax(t):
     o, d = random_rays(rng_np, 257)
     to, td = torch.as_tensor(o), torch.as_tensor(d)
     b = tbvh.build(torch.as_tensor(tris))
-    ok_b, t_b, i_b, pos_b, nrm_b = tbvh.closest_hit(b, 1e30, to, td)
+    ok_b, t_b, i_b, pos_b, nrm_b = tbvh.closest_hit(
+        b, 1e30, tla.v3_from_array(to), tla.v3_from_array(td))
+    pos_b, nrm_b = tla.v3_to_array(pos_b), tla.v3_to_array(nrm_b)
     # the JAX LBVH: the same leaf off ties, t within 1e-6
     ok_j, t_j, i_j, pos_j, nrm_j = jbvh.closest_hit(
         jbvh.build(jnp.asarray(tris)), 1e30, jnp.asarray(o), jnp.asarray(d))
@@ -180,7 +188,8 @@ def test_lbvh_any_hit_matches_dense_and_jax(tm):
     tris = random_tris(rng_np, 64)
     o, d = random_rays(rng_np, 129)
     to, td = torch.as_tensor(o), torch.as_tensor(d)
-    got = tbvh.any_hit(tbvh.build(torch.as_tensor(tris)), tm, to, td).numpy()
+    got = tbvh.any_hit(tbvh.build(torch.as_tensor(tris)), tm,
+                       tla.v3_from_array(to), tla.v3_from_array(td)).numpy()
     want_j = np.asarray(jbvh.any_hit(jbvh.build(jnp.asarray(tris)), tm,
                                      jnp.asarray(o), jnp.asarray(d)))
     np.testing.assert_array_equal(got, want_j)
@@ -194,7 +203,8 @@ def test_lbvh_any_hit_matches_dense_and_jax(tm):
 def test_lbvh_respects_per_lane_tmax():
     rng_np = np.random.default_rng(12)
     tris = random_tris(rng_np, 32)
-    o, d = (torch.as_tensor(x) for x in random_rays(rng_np, 64))
+    o, d = (tla.v3_from_array(torch.as_tensor(x))
+            for x in random_rays(rng_np, 64))
     b = tbvh.build(torch.as_tensor(tris))
     ok_far, t_far, _, _, _ = tbvh.closest_hit(b, 1e30, o, d)
     assert ok_far.any()
@@ -271,13 +281,121 @@ def test_built_lbvh_scene_matches_dense_scene():
 
 
 def test_auto_above_threshold_raises_value_error(monkeypatch):
-    """"auto" never routes to the LBVH: above the dense cap it refuses
-    and names both accels, as the JAX package does."""
+    """"auto" is the dense accel up to the dense cap and the LBVH above
+    it (the JAX package's "auto" refuses such a scene: its walk has no
+    kernel); an unknown accel raises a ValueError."""
     args = testscenes.cornell_like()
+    assert isinstance(tscene.build_scene(*args, accel="auto",
+                                         device="cpu").accel,
+                      tintersect.DenseTris)
     monkeypatch.setattr(tscene, "DENSE_THRESHOLD", 10)
-    with pytest.raises(ValueError, match=r"accel='lbvh'.*accel='dense'"):
-        tscene.build_scene(*args, accel="auto", device="cpu")
+    sc = tscene.build_scene(*args, accel="auto", device="cpu")
+    assert isinstance(sc.accel, tbvh.LBVH)
+    np.testing.assert_array_equal(sc.tri_mat.numpy(),
+                                  np.asarray(args[1], np.int32))
     with pytest.raises(ValueError, match="unknown accel"):
         tscene.build_scene(*args, accel="kdtree", device="cpu")
     sc = tscene.build_scene(*args, accel="lbvh", device="cpu")
     assert isinstance(sc.accel, tbvh.LBVH)
+
+
+def _op_args(rng_np, t=60, n=97):
+    """The ops' operands on random triangles and rays, with dead (tmax
+    0), NaN and per-lane tmax lanes and axis-parallel rays."""
+    tris = random_tris(rng_np, t)
+    o, d = random_rays(rng_np, n)
+    d[::6, 1] = 0.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = rng_np.uniform(0.5, 9.0, n).astype(np.float32)
+    tm[::9], tm[4::9] = 0.0, np.nan
+    b = tbvh.build(torch.as_tensor(tris))
+    return b, tbvh.op_args(b, torch.as_tensor(tm),
+                           tla.v3_from_array(torch.as_tensor(o)),
+                           tla.v3_from_array(torch.as_tensor(d)))
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_ops_cpu_version_is_the_plain_walk_counted(query):
+    """On the CPU each op is the plain walk (ops/bvh._traverse), output
+    for output; each call is counted as a plain call of its kernel and
+    adds its lanes to query.lanes.<kernel>, never query.tris (a launch's
+    alone)."""
+    b, args = _op_args(np.random.default_rng(31))
+    name = "lbvh_" + query
+    op = getattr(torch.ops.tracer_tpu_torch, name + "_hit")
+    want = tbvh._traverse(*args, any_hit=query == "any")
+    cuda_lib.reset_counts()
+    profiling.reset()
+    try:
+        with profiling.tracing():
+            got = op(*args)
+        c = profiling.counters()
+    finally:
+        profiling.reset()
+    if query == "any":
+        assert got.dtype == torch.bool and torch.equal(got, want[0])
+        assert got.any() and not got.all()
+    else:
+        leaf, t = got
+        assert leaf.dtype == torch.int64 and t.dtype == torch.float32
+        assert torch.equal(leaf, want[0])
+        assert torch.equal(t.view(torch.int32), want[1].view(torch.int32))
+        assert (leaf >= 0).any() and (leaf < 0).any()
+    assert cuda_lib.plain_calls[name] == 1 and cuda_lib.launches[name] == 0
+    assert c["query.lanes." + name] == 97
+    assert "query.tris." + name not in c
+    cuda_lib.reset_counts()
+
+
+def test_ops_fake_rules():
+    """The fake rules give torch.export the outputs' shapes and dtypes
+    without running the walk."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    _, args = _op_args(np.random.default_rng(32), n=41)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(x) for x in args]
+        leaf, t = torch.ops.tracer_tpu_torch.lbvh_closest_hit(*fake)
+        hit = torch.ops.tracer_tpu_torch.lbvh_any_hit(*fake)
+    assert (leaf.shape, leaf.dtype) == ((41,), torch.int64)
+    assert (t.shape, t.dtype) == ((41,), torch.float32)
+    assert (hit.shape, hit.dtype) == ((41,), torch.bool)
+
+
+def _tetra_x4(size_factor):
+    """SPD tetra's faces (portbench/scenes/spd_tetra.py) at size_factor,
+    every length x4 as the size-factor-10 configuration has them."""
+    from portbench.scenes import spd_tetra_sf10
+    from portbench.scenes.spd_tetra import faces
+    return spd_tetra_sf10.place(faces(size_factor)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scaled_tetra_against_every_triangle(seed):
+    """A x4-scaled tetra of size factor 3 (256 faces): the LBVH's closest
+    t and any hit on seeded random rays agree with a brute-force test of
+    every triangle (ops/intersect.closest_hit_bruteforce), lane for lane
+    off rays that graze a triangle's edge."""
+    tris = _tetra_x4(3)
+    r = np.random.default_rng(40 + seed)
+    n = 384
+    o = r.uniform(-6.0, 6.0, (n, 3)).astype(np.float32)
+    o[:, 2] += 10.0
+    d = (r.uniform(-4.0, 4.0, (n, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tm = r.uniform(5.0, 25.0, n).astype(np.float32)
+    b = tbvh.build(torch.as_tensor(tris))
+    to, td = torch.as_tensor(o), torch.as_tensor(d)
+    ok, t, idx, _, _ = tbvh.closest_hit(b, torch.as_tensor(tm),
+                                        tla.v3_from_array(to),
+                                        tla.v3_from_array(td))
+    hit_w, t_w, i_w = tintersect.closest_hit_bruteforce(
+        torch.as_tensor(tris), torch.as_tensor(tm)[:, None], to, td)
+    assert 0.2 < float(ok.float().mean()) < 0.95
+    np.testing.assert_array_equal(ok.numpy(), hit_w.numpy())
+    np.testing.assert_allclose(t.numpy()[ok.numpy()],
+                               t_w.numpy()[ok.numpy()], rtol=1e-6)
+    same = (idx == i_w).numpy()
+    assert same.mean() >= 0.99
+    anyh = tbvh.any_hit(b, torch.as_tensor(tm), tla.v3_from_array(to),
+                        tla.v3_from_array(td))
+    np.testing.assert_array_equal(anyh.numpy(), hit_w.numpy())

@@ -41,7 +41,10 @@ def init(seed: int, h: int, w: int, cam_conf_id: int,
     """Build the scene and the initial engine state on `device`.
 
     tri_geoms (n,3,3) f32, tri_mats (n,) u32, mat_data (m,28) f32, as
-    the loader (tracer_tpu_torch.utils.objloader) returns them."""
+    the loader (tracer_tpu_torch.utils.objloader) returns them. accel:
+    "dense", "lbvh" or "auto", the dense accel up to
+    models/scene.DENSE_THRESHOLD triangles and the LBVH above it (the JAX
+    package's "auto" refuses such a scene)."""
     device = torch.device(device)
     conf, render_mode, transmitter_kind = sensors.conf_for_id(cam_conf_id,
                                                               device)

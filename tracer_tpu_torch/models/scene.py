@@ -3,10 +3,11 @@ acceleration structure (port of tracer_tpu/models/scene.py).
 
 The scene is an nn.Module whose tensors are registered buffers, so
 `.to(device)` moves it whole. The accel is the dense intersector
-(ops/intersect.py: the hand-written kernels on the card) or the LBVH
-(ops/bvh.py: plain torch). "auto" is the dense accel up to
-DENSE_THRESHOLD triangles and refuses a larger scene; it never picks the
-LBVH.
+(ops/intersect.py: K1-K4 on the card) or the LBVH (ops/bvh.py: its walk
+K14/K15 on the card). "auto" is the dense accel up to DENSE_THRESHOLD
+triangles, the size it is verified at, and the LBVH above it. This
+departs from the JAX package on purpose: its "auto" refuses such a
+scene, since its LBVH walk has no kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from torch import nn
 from tracer_tpu_torch.models import lights as lights_mod
 from tracer_tpu_torch.ops import bvh as bvh_mod
 from tracer_tpu_torch.ops import intersect, materials
-from tracer_tpu_torch.ops import linalg as la
 
 DENSE_THRESHOLD = 2_500_000
 
@@ -100,7 +100,8 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
                 device) -> Scene:
     """Assemble a scene from loader arrays on `device`: tris (T, 3, 3) f32,
     tri_mats (T,) u32, mat_rows (M, 28) f32. accel: "dense", "lbvh" or
-    "auto" (the dense accel, up to DENSE_THRESHOLD triangles)."""
+    "auto" (the dense accel up to DENSE_THRESHOLD triangles, the LBVH
+    above)."""
     tris_np = np.asarray(tris_np, np.float32).reshape(-1, 3, 3)
     tri_mats_np = np.asarray(tri_mats_np, np.int64)
     mat_rows_np = np.asarray(mat_rows_np, np.float32).reshape(-1, 28)
@@ -109,14 +110,7 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
     if mat_rows_np.shape[0] == 0:
         mat_rows_np = np.zeros((1, 28), np.float32)
     if accel == "auto":
-        if t > DENSE_THRESHOLD:
-            raise ValueError(
-                f"scene has {t} triangles, above the verified dense/"
-                f"streaming cap ({DENSE_THRESHOLD}); pass accel='lbvh' "
-                f"explicitly (plain torch, no hand-written kernel) or "
-                f"accel='dense' to try the streaming intersector past its "
-                f"verified size")
-        accel = "dense"
+        accel = "lbvh" if t > DENSE_THRESHOLD else "dense"
     tris = torch.as_tensor(tris_np, device=device)
     # tri_mat is indexed by the accel's returned triangle index: the dense
     # intersector stores its triangles in morton order, the LBVH maps its
@@ -147,29 +141,20 @@ def build_scene(tris_np, tri_mats_np, mat_rows_np, accel: str = "auto", *,
         accel=acc)
 
 
-def _rays_as_rows(origin, d):
-    """V3 rays (3, N) or (3, 1) as the (N, 3) rows the LBVH walks."""
-    n = max(origin.shape[1], d.shape[1])
-    return (la.v3_to_array(origin.expand(3, n)),
-            la.v3_to_array(d.expand(3, n)))
-
-
 def closest_hit(scene: Scene, tmax, origin, d):
     """Rays are V3 (3,N); returns (ok, t, tri_idx, pos (3,N), normal (3,N))
     with tri_idx in the accel's order: storage (morton) order for the
     dense accel, input order for the LBVH."""
     if isinstance(scene.accel, intersect.DenseTris):
         return intersect.closest_hit(scene.accel, tmax, origin, d)[:5]
-    ok, t, idx, pos, nrm = bvh_mod.closest_hit(scene.accel, tmax,
-                                               *_rays_as_rows(origin, d))
-    return ok, t, idx, la.v3_from_array(pos), la.v3_from_array(nrm)
+    return bvh_mod.closest_hit(scene.accel, tmax, origin, d)
 
 
 def any_hit(scene: Scene, tmax, origin, d):
     """Shadow query; rays are V3 (3,N)."""
     if isinstance(scene.accel, intersect.DenseTris):
         return intersect.any_hit(scene.accel, tmax, origin, d)
-    return bvh_mod.any_hit(scene.accel, tmax, *_rays_as_rows(origin, d))
+    return bvh_mod.any_hit(scene.accel, tmax, origin, d)
 
 
 class Interaction(NamedTuple):

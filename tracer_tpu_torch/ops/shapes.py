@@ -56,6 +56,17 @@ def hit_triangle_v(tmax, origin, d, ta, tb, tc):
 
     Returns (ok (N,), t (N,), pos (3,N), normal (3,N)); t = +inf on miss.
     """
+    ok, t, n = triangle_t_v(tmax, origin, d, ta, tb, tc)
+    pos = origin + torch.where(ok, t, 0.0) * d
+    normal = la.v3_normalize(n, eps=1e-30)
+    return ok, t, pos, normal
+
+
+def triangle_t_v(tmax, origin, d, ta, tb, tc):
+    """hit_triangle_v up to t: (ok (N,), t (N,), +inf on a miss, the
+    unnormalised normal (3,N)). Each f32 operation is one PyTorch op, so
+    the result is the same on every device (csrc/bvh.cu computes it so
+    too)."""
     e1 = tb - ta
     e2 = tc - ta
     n = la.v3_cross(e1, e2)
@@ -69,10 +80,7 @@ def hit_triangle_v(tmax, origin, d, ta, tb, tc):
     v = -la.v3_dot(m, e1) * inv_a
     ok = (nondeg & (u >= 0) & (v >= 0) & (u + v <= 1)
           & (t < tmax) & (t > 0))
-    t = torch.where(ok, t, float("inf"))
-    pos = origin + torch.where(ok, t, 0.0) * d
-    normal = la.v3_normalize(n, eps=1e-30)
-    return ok, t, pos, normal
+    return ok, torch.where(ok, t, float("inf")), n
 
 
 def disk_sectors_v(p, normal, radius, n_sectors: int):
@@ -98,7 +106,8 @@ def disk_sectors_v(p, normal, radius, n_sectors: int):
 
 
 # ---------------------------------------------------------------------------
-# Boxes, in the (..., 3) layout of the LBVH (tracer_tpu/ops/shapes.py:94-121)
+# Boxes of the LBVH (tracer_tpu/ops/shapes.py:94-121): built in the (..., 3)
+# layout, tested in the transposed one
 
 def aabb_center(aabb_min, aabb_max):
     return (aabb_min + aabb_max) * 0.5
@@ -110,15 +119,17 @@ def bounding_box_triangle(tri):
     return tri.amin(dim=-2), tri.amax(dim=-2)
 
 
-def hit_aabb(tmax, origin, d, aabb_min, aabb_max):
-    """Slab test over (..., 3) rays and boxes: tmin starts at 0, each
-    axis' upper bound is inflated by (1 + AABB_EPS), and a box is missed
-    when its exit is not after its entry."""
-    inv_d = 1.0 / d
+def hit_aabb_v(tmax, origin, inv_d, aabb_min, aabb_max):
+    """Slab test of V3 rays, given by their origin and inv_d = 1.0 / d,
+    against V3 boxes: tmin starts at 0, each axis' upper bound is
+    inflated by (1 + AABB_EPS), and a box is missed when its exit is not
+    after its entry (or is NaN, from 0 x inf on a box's face)."""
     t0 = (aabb_min - origin) * inv_d
     t1 = (aabb_max - origin) * inv_d
     lo = torch.minimum(t0, t1)
     hi = torch.maximum(t0, t1) * (1.0 + AABB_EPS)
-    tmin = torch.clamp_min(lo.amax(dim=-1), 0.0)
-    tmax_ = torch.minimum(hi.amin(dim=-1), tmax)
+    tmin = torch.clamp_min(torch.maximum(torch.maximum(lo[0], lo[1]), lo[2]),
+                           0.0)
+    tmax_ = torch.minimum(torch.minimum(torch.minimum(hi[0], hi[1]), hi[2]),
+                          tmax)
     return tmax_ > tmin

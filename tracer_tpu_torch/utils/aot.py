@@ -5,9 +5,11 @@ The reference's build emits a generated C kernel library, compiled once
 and linked by the host apps (SURVEY.md §2.2). The JAX package's analogue
 serialises its jitted step with jax.export; this one captures
 engine/api.step_core with torch.export, as one program of aten ops, the
-pool's and the LBVH walk's loops as torch's while_loop, and the
-intersection kernels as the custom ops tracer_tpu_torch::closest_hit and
-tracer_tpu_torch::any_hit (ops/intersect_kernel.py), a sorted query's
+pool's loop as torch's while_loop, and the intersection kernels as the
+custom ops tracer_tpu_torch::closest_hit and tracer_tpu_torch::any_hit
+(ops/intersect_kernel.py), the LBVH walk as
+tracer_tpu_torch::lbvh_closest_hit and lbvh_any_hit (ops/bvh.py), a
+sorted query's
 key and deal as tracer_tpu_torch::lane_key and lane_deal around aten's
 stable sort (ops/intersect.py), the shading around the shadow query as
 tracer_tpu_torch::shade_prepare and shade_finish (engine/shade.py), the
@@ -49,6 +51,7 @@ import torch
 from tracer_tpu_torch.engine import refill  # noqa: F401 (the op)
 from tracer_tpu_torch.engine import shade  # noqa: F401 (the ops)
 from tracer_tpu_torch.engine.state import EngineState
+from tracer_tpu_torch.ops import bvh  # noqa: F401 (the ops)
 from tracer_tpu_torch.ops import intersect  # noqa: F401 (the ops)
 from tracer_tpu_torch.ops import intersect_kernel  # noqa: F401 (the ops)
 from tracer_tpu_torch.utils import checkpoint, profiling
@@ -182,7 +185,8 @@ def load(blob: bytes):
     """The callable of an export_fn or export_step artifact: the program
     runs its aten graph and the registered ops, and never retraces the
     renderer's Python. It imports the op registrations (ops/intersect.py,
-    ops/intersect_kernel.py, engine/shade.py, engine/refill.py) and the state's structure
+    ops/intersect_kernel.py, ops/bvh.py, engine/shade.py,
+    engine/refill.py) and the state's structure
     (engine/state.py, utils/checkpoint.py), not engine/integrator.py or
     engine/api.py. A step artifact gives a LoadedStep."""
     extra = {_META: ""}
