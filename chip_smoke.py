@@ -9,17 +9,18 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
 (utils/kernel_timing.alone), for every kernel alike:
 
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    nvcc-builds csrc/bvh.cu, csrc/intersect.cu, csrc/prep.cu,
-              csrc/recip.cu, csrc/refill.cu and csrc/shade.cu from the
-              checkout into one library; counts
+  2. build    nvcc-builds csrc/bvh.cu, csrc/interaction.cu,
+              csrc/intersect.cu, csrc/prep.cu, csrc/recip.cu,
+              csrc/refill.cu and csrc/shade.cu from the checkout into one
+              library; counts
               each kernel's shared-memory load instructions in cuobjdump
               -sass of it (those of
               K1, K2, K3 and K4 are their scan loops', one triangle per
               iteration: 10 LDS.128 in each copy of the loop the compiler
               emitted, and no narrower load, or the phase fails); K1's
               registers and spills as ptxas printed them; K6 and K7 (the
-              shading), K13 (the refill) and K14/K15 (the LBVH walk) read
-              no shared memory, nor do
+              shading), K13 (the refill), K14/K15 (the LBVH walk) and K16
+              (the closest hit's interaction) read no shared memory, nor do
               K8-K10 (the key, the
               deal, the superchunk boxes); K11 and K12 (the schedule and
               the tile order) do, at any width
@@ -46,9 +47,9 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               with its rays_traced, iterations, pool lanes P and the live
               share of its lane-iterations; 3 x step_render; checks the
               image and that every kernel launched and no plain intersect
-              or shading or refill version ran, K6, K7 and K13 once a
-              bounce (as often as K3), their counts set to 0 just before
-              the window;
+              or shading or refill or interaction version ran, K6, K7,
+              K13 and K16 once a bounce (as often as K3), their counts
+              set to 0 just before the window;
               inside the same window the exact kernel runs once on the
               camera rays, and K1's hits on them, taken before
               the window, must equal its own. Then the pool again from the
@@ -93,7 +94,16 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               every output bit for bit on every lane; timed as the op
               (wrapper) and as its launch alone, beside the plain version
               and the bound of its bytes
-  6b. prep    the sorted query's preparation (csrc/prep.cu: K8 the key,
+  6b. interaction  K16 (csrc/interaction.cu, the op interaction) on the
+              operands pool iteration 1 of a 16-spp pool render hands it
+              (2,097,152 lanes after K1's query), for the Cornell render
+              (config 0) and the capture (config 2); in phase 10 on those
+              of SPD tetra at size factor 10 (524,288 lanes after K14's
+              walk, the LBVH's template): against its plain version run
+              on the card, every output bit for bit on every lane; timed
+              as the op (wrapper) and as its launch alone, beside the
+              plain version and the bound of its bytes
+  6c. prep    the sorted query's preparation (csrc/prep.cu: K8 the key,
               K9 the deal and gather, K10 the superchunk boxes, K11 the
               per-tile schedule, K12 the tile order) at the pool's
               shapes: SPD tetra at size factor 8 (1,025 chunks, g = 17),
@@ -193,7 +203,8 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               hands the LBVH: 524,288 closest and 1,048,576 shadow lanes;
               there each kernel timed as the op (wrapper) and its launch
               alone, beside one call of the plain version and the bound
-              of the bytes it must move
+              of the bytes it must move; K16 on that render's pool
+              iteration 1 as in phase 6b (lbvh_* of the kernels line)
  11. checkpoint  a state saved (utils/checkpoint.py) and loaded on the
               card, with either accel, resumes the next step bit for bit
               (run after phase 7's checks, beside phase 15's exports)
@@ -207,7 +218,7 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               card (tile-only bit for bit, else within rtol 1e-5 with the
               differing pixels printed; sample-sharded within rtol 1e-5;
               points: returns and positions equal, intensity within rtol
-              1e-6), each rank's K1/K3, K6/K7 and K13 launches > 0 and
+              1e-6), each rank's K1/K3, K6/K7, K13 and K16 launches > 0 and
               no plain version on any rank, each sharded wall beside the
               single call's; then one NCCL group of world size 1 that
               reduces a tensor on the card and renders through a (1, 1)
@@ -238,7 +249,7 @@ own launch, recorded by ops/cuda_lib.py and replayed with nothing else
               process (their walls printed beside), the kernels each
               state needs launched from the exported step and no plain
               version called
- 16. result   a JSON line of the kernels (K1-K15 and the exact
+ 16. result   a JSON line of the kernels (K1-K16 and the exact
               kernel), then the last line
               {"ok": true, "device": {...}}
 
@@ -265,12 +276,14 @@ K1-K4 the operations are the (lane, triangle) tests the answer needs
 (kernel_cases.needed_tests), 85 flops each: for a closest query every
 chunk a ray enters up to its best t; for an any-hit query one chunk per
 occluded lane and every chunk an unoccluded lane enters before tmax.
-K6, K7 and K13 are bound by their bytes alone (shade_bytes: 185 bytes a
-lane for K6 without a fan, 24 for K7; refill_bytes: 186 for K13 without
-the fan, 474 with it); their operations are not counted. So are K14 and
-K15 (lbvh_bytes): every triangle read once (36 bytes), each lane's ray
-and tmax read and its answer written (24 + 4 + 12 bytes closest, 24 + 4
-+ 1 any); the walk's node reads and tests are not counted.
+K6, K7, K13 and K16 are bound by their bytes alone (shade_bytes: 185
+bytes a lane for K6 without a fan, 24 for K7; refill_bytes: 186 for K13
+without the fan, 474 with it; interaction_bytes: 93 for K16, and each
+triangle and material row the lanes name once); their operations are not
+counted. So are K14 and K15 (lbvh_bytes): every triangle read once (36
+bytes), each lane's ray and tmax read and its answer written (24 + 4 + 12
+bytes closest, 24 + 4 + 1 any); the walk's node reads and tests are not
+counted.
 """
 
 import contextlib
@@ -324,6 +337,9 @@ EXACT = "closest_hit_exact"   # the yardstick, never on the path
 SHADE_KERNELS = ("shade_prepare", "shade_finish")   # K6, K7 (csrc/shade.cu)
 REFILL_KERNELS = ("refill",)   # K13 (csrc/refill.cu)
 LBVH_KERNELS = ("lbvh_closest", "lbvh_any")   # K14, K15 (csrc/bvh.cu)
+INTERACTION_KERNELS = ("interaction",)   # K16 (csrc/interaction.cu)
+# every bounce of the pool launches these once, whatever the accel
+BOUNCE_KERNELS = SHADE_KERNELS + REFILL_KERNELS + INTERACTION_KERNELS
 # K8-K12, the sorted query's preparation (csrc/prep.cu; ops/intersect_kernel
 # PREP_KERNELS), and those of them that read no shared memory
 PREP_KERNELS = ("lane_key", "lane_deal", "superchunk", "schedule",
@@ -359,6 +375,10 @@ REPLACES = {
     "lbvh_closest": "none: XLA runs tracer_tpu/ops/bvh.py:_traverse "
                     "(closest_hit)",
     "lbvh_any": "none: XLA runs tracer_tpu/ops/bvh.py:_traverse (any_hit)",
+    # no TPU kernel: XLA fuses the closest hit's re-test and material row
+    "interaction": "none: XLA fuses tracer_tpu/models/scene.py "
+                   "(closest_interaction), tracer_tpu/ops/intersect.py:481 "
+                   "and tracer_tpu/ops/materials.py (at_wavelength_rows)",
 }
 # Published H100 SXM rates (NVIDIA's data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -423,24 +443,23 @@ def reset_path_counts(ik):
 
 
 def path_counts(ik, phase):
-    """(launches, plain_calls) of K1-K4, K6/K7 and K13 since
-    reset_path_counts. In the pool K6, K7 and K13 launch once a bounce,
-    as the any-hit query does on a scene with a light (K3 or K4), and no
-    plain version runs; else this raises."""
+    """(launches, plain_calls) of K1-K4, K6/K7, K13 and K16 since
+    reset_path_counts. In the pool K6, K7, K13 and K16 launch once a
+    bounce, as the any-hit query does on a scene with a light (K3 or K4),
+    and no plain version runs; else this raises."""
     from tracer_tpu_torch.ops import cuda_lib
-    keep = VARIANTS + (EXACT,) + SHADE_KERNELS + REFILL_KERNELS
+    keep = VARIANTS + (EXACT,) + BOUNCE_KERNELS
     launches = {k: cuda_lib.launches[k] for k in keep}
     plain = {k: cuda_lib.plain_calls[k] for k in keep}
-    per_bounce = SHADE_KERNELS + REFILL_KERNELS
-    shading = {k: launches[k] for k in per_bounce}
-    shade_plain = {k: plain[k] for k in per_bounce}
+    shading = {k: launches[k] for k in BOUNCE_KERNELS}
+    shade_plain = {k: plain[k] for k in BOUNCE_KERNELS}
     bounces = launches["any_hit"] + launches["any_hit_streamed"]
-    log(phase, f"shading and refill kernels: launches {shading}, plain "
-        f"calls {shade_plain}, any-hit launches {bounces}")
-    if (any(launches[k] != bounces for k in per_bounce) or bounces <= 0
+    log(phase, f"shading, refill and interaction kernels: launches "
+        f"{shading}, plain calls {shade_plain}, any-hit launches {bounces}")
+    if (any(launches[k] != bounces for k in BOUNCE_KERNELS) or bounces <= 0
             or max(shade_plain.values()) != 0):
-        raise AssertionError("the shading and refill kernels did not run "
-                             "once a bounce")
+        raise AssertionError("the shading, refill and interaction kernels "
+                             "did not run once a bounce")
     return launches, plain
 
 
@@ -539,13 +558,15 @@ def shared_loads(path):
             cur = next((f"{k}_kernel"
                         for k in VARIANTS + (EXACT, "approx_reciprocal")
                         + SHADE_KERNELS + PREP_KERNELS + REFILL_KERNELS
-                        + LBVH_KERNELS
+                        + LBVH_KERNELS + INTERACTION_KERNELS
                         if f"{k}_kernel" in m.group(1)), m.group(1))
             flags = re.search(r"ILb(\d)ELb(\d)E", m.group(1))
             if cur.startswith("shade_prepare") and flags:
                 cur += " (lights %s, transmitter %s)" % flags.groups()
             elif cur.startswith("refill"):
                 cur += " (fan)" if "ILb1E" in m.group(1) else ""
+            elif cur.startswith("interaction"):
+                cur += " (lbvh)" if "ILb1E" in m.group(1) else " (dense)"
             elif "ILb1E" in m.group(1):
                 cur += " (stats on)"
             counts[cur], code[cur] = {}, []
@@ -565,14 +586,15 @@ def check_wide_loads(loads):
     in their scan loop, one triangle per iteration: 10 LDS.128 in each
     copy of the loop, and no narrower load. The exact kernel (row-major
     stage, 64-bit loads) and K5 are not held to it; K6 and K7 (the
-    shading), K13 (the refill) and K14/K15 (the LBVH walk), one thread a
-    lane, read no shared memory. Of the
+    shading), K13 (the refill), K14/K15 (the LBVH walk) and K16 (the
+    interaction), one thread a lane, read no shared memory. Of the
     preparation's kernels (K8-K12) the key, the deal and the superchunk
     boxes read none; the schedule reads its tile's boxes, warp minima and
     keys, and the tile order its histogram and tallies, at whatever width
     the compiler chose (logged)."""
     for k, c in loads.items():
         if k.startswith(SHADE_KERNELS + REFILL_KERNELS + LBVH_KERNELS
+                        + INTERACTION_KERNELS
                         + tuple(f"{p}_kernel" for p in PREP_NO_SHARED)):
             if c:
                 raise AssertionError(f"{k} reads shared memory: {c}")
@@ -1284,6 +1306,110 @@ def phase_refill(T, integrator, scene_arrays, card, device):
             f"{card})")
         out["refill"].update({f"{tag}{f}": v for f, v in t.items()})
         del got, want, args, calls, s
+        torch.cuda.empty_cache()
+    return out
+
+
+def interaction_bytes(args, outs):
+    """The bytes K16 must move: each lane operand read once (tmax, the
+    wavelength, the ray, the query's answer), each output written once,
+    and each triangle row and material row the lanes name read once
+    (93 bytes a lane on either accel, beside the rows; a broadcast
+    operand once)."""
+    import torch
+    (tris, perm, tri_mat, mat_rows, tmax, o, d, wl, best_t, best_i,
+     leaf) = args
+    n = d.shape[1]
+    moved = sum(lane_bytes(x, n) for x in (tmax, o, d, wl, best_t, best_i,
+                                           leaf, *outs))
+    if leaf is None:
+        rows = torch.where(torch.isfinite(best_t), best_i, 0).long()
+        mats = tris[rows, 9].long()
+        row_bytes = 40
+    else:
+        rows = torch.where(leaf >= 0, leaf, 0)
+        mats = tri_mat[perm[rows].long()].long()
+        row_bytes = 36 + 4 + 4   # the leaf, its perm and its tri_mat
+    moved += int(torch.unique(rows).numel()) * row_bytes
+    moved += int(torch.unique(mats).numel()) * 28 * 4
+    return moved
+
+
+def interaction_held(phase, label, args, card, tag=""):
+    """K16 (the op interaction) on the operands args against its plain
+    version run on the card, every output bit for bit on every lane
+    (raises where a value differs); then timed as the op (wrapper) and
+    its launch alone, beside the plain version and the bound of its
+    bytes. Returns the fields of the kernels line, each under tag."""
+    import torch
+    from tracer_tpu_torch.engine import interaction
+    from tracer_tpu_torch.utils import kernel_timing
+
+    def op():
+        return torch.ops.tracer_tpu_torch.interaction(*args)
+
+    def plain():
+        return interaction._plain(*args)
+
+    got, want = op(), plain()
+    torch.cuda.synchronize()
+    unequal = {name: int((g.view(torch.int32) != r.view(torch.int32)).sum()
+                         if g.dtype == torch.float32 else (g != r).sum())
+               for name, g, r in zip(("ok", "t", "pos", "normal", "mat"),
+                                     got, want)}
+    n = args[6].shape[1]
+    log(phase, f"interaction on {label} ({n} lanes, "
+        f"{int((args[4] > 0).sum())} live, {int(want[0].sum())} hit): "
+        f"against the plain version on the card, values not equal bit for "
+        f"bit {unequal}")
+    if sum(unequal.values()):
+        raise AssertionError("interaction differs from its plain version")
+    alone = kernel_timing.alone(op, "interaction")
+    t = {"ms": ms_per_call(op), "alone_ms": ms_per_call(alone),
+         "plain_ms": ms_per_call(plain, calls=5, rounds=3)}
+    del alone
+    moved = interaction_bytes(args, got)
+    t["bound_ms"], t["bound_by"] = bound(moved, 0)
+    t["timed_at"] = f"{label}, {n} lanes"
+    log(phase, f"time interaction on {label}: wrapper {t['ms']:.4f} ms, "
+        f"alone {t['alone_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({moved / n:.1f} B a lane at 3.35 TB/s), "
+        f"share of the bound alone "
+        f"{100 * t['bound_ms'] / t['alone_ms']:.1f}% (median of "
+        f"{TIME_ROUNDS} rounds of {TIME_CALLS} back-to-back calls, on "
+        f"{card})")
+    return {f"{tag}{f}": v for f, v in t.items()}
+
+
+def phase_interaction(T, integrator, scene_arrays, card, device):
+    """K16 (csrc/interaction.cu, the op interaction) at the main path's
+    shapes: the operands pool iteration POOL_TIMED of a 16-spp pool render
+    hands engine/interaction.dense after K1's query, P = 2,097,152 lanes,
+    for the render (config 0, 512x512) and the capture (config 2,
+    640x480); interaction_held on each. Returns name -> fields of the
+    kernels line (the capture's under capture_*)."""
+    import torch
+    from tracer_tpu_torch.engine import interaction
+    tris, tm, mats = scene_arrays
+    out = {"interaction": {}}
+    for conf, (w, h), tag in ((0, (SIZE, SIZE), ""),
+                              (2, (LIDAR_W, LIDAR_H), "capture_")):
+        s = T.init(0, h, w, conf, tris, tm, mats, cam_origin=CAM_ORIGIN,
+                   device=device)
+        calls = []
+        with tap_call(interaction, "dense", POOL_TIMED, calls):
+            integrator.render_pooled(
+                s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, w, h,
+                s.transmitter_kind, PROFILE_SPP, s.render_mode,
+                with_points=conf == 2)
+        torch.cuda.synchronize()
+        (a, kw, _), = calls
+        args = interaction.dense_args(*a, **kw)
+        label = (f"pool iteration {POOL_TIMED} of a {PROFILE_SPP}-spp {w}x{h}"
+                 f" config-{conf} render")
+        out["interaction"].update(interaction_held("interaction", label,
+                                                   args, card, tag))
+        del calls, args, s
         torch.cuda.empty_cache()
     return out
 
@@ -2458,9 +2584,12 @@ def phase_lbvh_kernels(T, integrator, scene_arrays, card, device):
     every lane: the LBVH box's camera, first-bounce and shadow rays, and
     the queries pool iteration POOL_TIMED of a PROFILE_SPP-spp 512x512
     render of SPD tetra at size factor 10 hands the LBVH; timed there.
-    Returns name -> fields of the kernels line."""
+    K16 on the interaction of that render's pool iteration POOL_TIMED
+    (interaction_held). Returns name -> fields of the kernels line (K16's
+    under lbvh_*)."""
     import torch
     from portbench.scenes import spd_tetra_sf10
+    from tracer_tpu_torch.engine import interaction
     from tracer_tpu_torch.ops import bvh as bvh_mod
     from tracer_tpu_torch.ops import cuda_lib, shapes
     from tracer_tpu_torch.utils import kernel_cases as kc
@@ -2496,7 +2625,9 @@ def phase_lbvh_kernels(T, integrator, scene_arrays, card, device):
     cuda_lib.reset_counts()
     with tap_call(bvh_mod, "closest_hit", POOL_TIMED, kept.setdefault(
             "closest", [])), tap_call(bvh_mod, "any_hit", POOL_TIMED,
-                                      kept.setdefault("any", [])):
+                                      kept.setdefault("any", [])), \
+            tap_call(interaction, "lbvh", POOL_TIMED,
+                     kept.setdefault("interaction", [])):
         t0 = time.perf_counter()
         out = integrator.render_pooled(
             s.seed, s.nonce + 1, s.scene, s.cam, s.ambience, SIZE, SIZE,
@@ -2512,9 +2643,9 @@ def phase_lbvh_kernels(T, integrator, scene_arrays, card, device):
         raise AssertionError("the LBVH render did not run on K14/K15 alone")
     times = {}
     for q, name in zip(("closest", "any"), LBVH_KERNELS):
-        (a, kw, _), = kept[q]
+        (a, _, _), = kept[q]   # the keywords: closest_hit's then
         any_hit = q == "any"
-        args = bvh_mod.op_args(*a, **kw)
+        args = bvh_mod.op_args(*a)
         label = (f"SPD tetra sf10's pool iteration {POOL_TIMED} {q} query")
         op, plain = lbvh_held(label, args, any_hit)
         alone = kernel_timing.alone(op, name)
@@ -2539,6 +2670,10 @@ def phase_lbvh_kernels(T, integrator, scene_arrays, card, device):
             f"{100 * t['bound_ms'] / t['alone_ms']:.2f}% (median of "
             f"{TIME_ROUNDS} rounds of 5 back-to-back calls, on {card})")
         times[name] = t
+    (a, kw, _), = kept["interaction"]
+    times["interaction"] = interaction_held(
+        "lbvh", f"SPD tetra sf10's pool iteration {POOL_TIMED} (the LBVH)",
+        interaction.lbvh_args(*a, **kw), card, "lbvh_")
     del s, kept, arrays
     torch.cuda.empty_cache()
     return times
@@ -2619,17 +2754,17 @@ def points_held_to(phase, label, got, want):
 
 
 def rank_counts(phase, label, r):
-    """Each rank's K1/K3, K6/K7 and K13 launches (> 0) and plain calls of
-    any kernel (0)."""
+    """Each rank's K1/K3, K6/K7, K13 and K16 launches (> 0) and plain
+    calls of any kernel (0)."""
     launches, plain = r["launches"], r["plain_calls"]
-    ran = ("closest_hit", "any_hit") + SHADE_KERNELS + REFILL_KERNELS
+    ran = ("closest_hit", "any_hit") + BOUNCE_KERNELS
     log(phase, f"{label}: launches per rank "
         f"{ {k: launches[k] for k in ran} }; plain calls per rank "
         f"{ {k: v for k, v in plain.items() if max(v)} }")
     if (min(min(launches[k]) for k in ran) <= 0
             or max(max(v) for v in plain.values()) != 0):
-        raise AssertionError(f"{label}: a rank did not run K1, K3, K6, K7 "
-                             f"and K13, or ran a plain version")
+        raise AssertionError(f"{label}: a rank did not run K1, K3, K6, K7, "
+                             f"K13 and K16, or ran a plain version")
 
 
 def timed(fn):
@@ -2932,17 +3067,14 @@ def aot_states(T, scene_arrays, device):
     sub6 = cornell_sub(SLICE_LEVELS)
     cases = {
         "cornell-512": (SIZE, SIZE, 0, scene_arrays, "auto",
-                        ("closest_hit", "any_hit") + SHADE_KERNELS
-                        + REFILL_KERNELS),
+                        ("closest_hit", "any_hit") + BOUNCE_KERNELS),
         "cornell-sub6-512": (SIZE, SIZE, 0, sub6, "auto",
                              ("closest_hit_streamed", "any_hit_streamed")
-                             + SHADE_KERNELS + PREP_KERNELS
-                             + REFILL_KERNELS),
+                             + PREP_KERNELS + BOUNCE_KERNELS),
         "capture-640x480": (LIDAR_W, LIDAR_H, 2, scene_arrays, "auto",
-                            ("closest_hit", "any_hit") + SHADE_KERNELS
-                            + REFILL_KERNELS),
+                            ("closest_hit", "any_hit") + BOUNCE_KERNELS),
         "lbvh-128": (AOT_LBVH_SIZE, AOT_LBVH_SIZE, 0, scene_arrays, "lbvh",
-                     LBVH_KERNELS + SHADE_KERNELS + REFILL_KERNELS),
+                     LBVH_KERNELS + BOUNCE_KERNELS),
     }
     out = {}
     for name, (w, h, conf, arrays, accel, kernels) in cases.items():
@@ -3145,6 +3277,9 @@ def main():
     clock("shade")
     refill_times = phase_refill(T, integrator, scene_arrays, card, device)
     clock("refill")
+    interaction_times = phase_interaction(T, integrator, scene_arrays, card,
+                                          device)
+    clock("interaction")
     prep_times = phase_prep(T, ik, intersect, card, device)
     clock("prep")
     # phase aot's exports run beside the checks that time nothing: the
@@ -3238,6 +3373,13 @@ def main():
                  "source": "tracer_tpu_torch/csrc/bvh.cu",
                  "replaces": REPLACES[k], **lbvh_times[k]}
                 for k in LBVH_KERNELS]
+    # K16: launches of the main path's window, the rest at the operands of
+    # its pool (capture_*: the capture's; lbvh_*: SPD tetra sf10's LBVH)
+    kernels += [{"name": f"{k}_kernel", "route": "cuda",
+                 "source": "tracer_tpu_torch/csrc/interaction.cu",
+                 "replaces": REPLACES[k], "launches": launches[k],
+                 **interaction_times[k], **lbvh_times[k]}
+                for k in INTERACTION_KERNELS]
     if min(k["launches"] for k in kernels) <= 0:
         raise AssertionError("a kernel of the path was not launched")
     log("result", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s")

@@ -264,21 +264,23 @@ def test_lbvh_walk_while_loop_equals_eager(request):
 
 def test_exported_step_holds_the_shade_ops(artifact):
     """The exported step's graph, its while_loop bodies included, calls
-    tracer_tpu_torch::shade_prepare and shade_finish (the pool's bounce)
-    and tracer_tpu_torch::refill (the pool's refill) beside the
-    intersection ops."""
+    tracer_tpu_torch::shade_prepare and shade_finish (the pool's bounce),
+    tracer_tpu_torch::refill (the pool's refill) and
+    tracer_tpu_torch::interaction (the closest hit's interaction) beside
+    the intersection ops."""
     _, _, step = artifact("distance")
     targets = {str(node.target) for m in step.program.modules()
                if isinstance(m, torch.fx.GraphModule)
                for node in m.graph.nodes if node.op == "call_function"}
-    for op in ("shade_prepare", "shade_finish", "refill", "closest_hit",
-               "any_hit"):
+    for op in ("shade_prepare", "shade_finish", "refill", "interaction",
+               "closest_hit", "any_hit"):
         assert f"tracer_tpu_torch.{op}.default" in targets, op
 
 
 def test_exported_lbvh_step_holds_the_walk_ops(artifact):
     """The exported step of an LBVH state calls the walk's ops,
-    tracer_tpu_torch::lbvh_closest_hit and lbvh_any_hit, and holds one
+    tracer_tpu_torch::lbvh_closest_hit and lbvh_any_hit (and after the
+    first, tracer_tpu_torch::interaction), and holds one
     while_loop alone, the pool's: the walk is no loop of the graph."""
     _, _, step = artifact("lbvh")
     nodes = [node for m in step.program.modules()
@@ -286,7 +288,7 @@ def test_exported_lbvh_step_holds_the_walk_ops(artifact):
              for node in m.graph.nodes if node.op == "call_function"]
     targets = {str(node.target) for node in nodes}
     for op in ("lbvh_closest_hit", "lbvh_any_hit", "shade_prepare",
-               "refill"):
+               "refill", "interaction"):
         assert f"tracer_tpu_torch.{op}.default" in targets, op
     assert sum("while_loop" in str(node.target) for node in nodes) == 1
 

@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from tracer_tpu_torch.engine import refill, shade
+from tracer_tpu_torch.engine import interaction, refill, shade
 from tracer_tpu_torch.ops import bvh, cuda_lib, recip
 from tracer_tpu_torch.ops import intersect_kernel as ik
 
@@ -58,7 +58,8 @@ def test_every_counted_kernel_is_one_cuda_lib_knows():
     name a module of the package launches or counts as plain is one of
     them; every constant a wrapper registers has its getter in csrc/."""
     wrappers = (*ik.KERNELS, *ik.PREP_KERNELS, *shade.KERNELS,
-                *refill.KERNELS, *bvh.KERNELS, recip.NAME)
+                *refill.KERNELS, *bvh.KERNELS, *interaction.KERNELS,
+                recip.NAME)
     assert sorted(wrappers) == sorted(cuda_lib.KERNELS)
     assert cuda_lib.launches.keys() == cuda_lib.plain_calls.keys() == set(
         cuda_lib.KERNELS)

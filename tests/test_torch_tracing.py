@@ -370,6 +370,41 @@ def test_query_lanes_count_the_lanes_handed_to_the_kernels(streamed,
     assert handed["closest"] == c["pool.lane_iters"]
 
 
+@pytest.mark.parametrize("accel", ["dense", "lbvh"])
+def test_interaction_lanes_count_each_launch(accel, monkeypatch):
+    """interaction.lanes: each launch of K16 adds its lanes, so that over
+    a pooled render it is the pool's lane-iterations (pool.lane_iters),
+    as on the card. Here the op's CUDA implementation runs on the CPU
+    with a stand-in launch that writes the plain version's answer into
+    the outputs it is handed; the render is the plain one's bit for
+    bit."""
+    from tracer_tpu_torch.engine import interaction
+    from tracer_tpu_torch.ops import cuda_lib
+    s = _state(0, accel=accel)
+    want = _pooled(s, 3)
+
+    def launch(name, device, ptrs, ints):
+        (tris, perm, tri_mat, mat_rows, tmax, wl, o, d, best_t, best_i,
+         leaf), outs = ptrs[:11], ptrs[11:]
+        assert name == "interaction" and ints[0] == d.shape[1]
+        for out, x in zip(outs, interaction._plain(
+                tris, perm, tri_mat, mat_rows, tmax, o, d, wl, best_t,
+                best_i, leaf)):
+            out.copy_(x)
+
+    monkeypatch.setattr(cuda_lib, "launch", launch)
+    for name, args_fn in (("dense", interaction.dense_args),
+                          ("lbvh", interaction.lbvh_args)):
+        monkeypatch.setattr(interaction, name, lambda *a, _f=args_fn:
+                            interaction._interaction_cuda(*_f(*a)))
+    with profiling.tracing():
+        got = _pooled(s, 3)
+    c = profiling.counters()
+    assert c["interaction.lanes"] == c["pool.lane_iters"] > 0
+    for k in ("img", "rays_traced", "iters"):
+        assert torch.equal(torch.as_tensor(got[k]), torch.as_tensor(want[k]))
+
+
 def _mesh_rank(rank, world, store, out):
     """One gloo rank: the sharded calls under the recorder, each call's
     spans and counters apart; rank 0 writes them to `out`."""

@@ -43,7 +43,6 @@
 namespace {
 
 constexpr int kLbvhBlock = 128;
-constexpr float kTriEps = 0.00001f;                 // shapes.TRI_EPS
 constexpr float kAabbScale = (float)(1.0 + 0.001);  // 1 + shapes.AABB_EPS
 
 struct LbvhArgs {
@@ -95,18 +94,8 @@ __device__ __forceinline__ bool hit_leaf(const LbvhArgs& a, int li,
     const V3 ta = {__ldg(p), __ldg(p + 1), __ldg(p + 2)};
     const V3 tb = {__ldg(p + 3), __ldg(p + 4), __ldg(p + 5)};
     const V3 tc = {__ldg(p + 6), __ldg(p + 7), __ldg(p + 8)};
-    const V3 e1 = tb - ta, e2 = tc - ta;
-    const V3 n = cross(e1, e2);
-    const float det = -dot(n, d);
-    const bool nondeg = fabsf(det) >= kTriEps;
-    const float inv_a = __fdiv_rn(nondeg ? 1.f : 0.f, nondeg ? det : 1.f);
-    const V3 s = o - ta;
-    const V3 m = cross(s, d);
-    t = mul(dot(n, s), inv_a);
-    const float u = mul(dot(m, e2), inv_a);
-    const float v = mul(-dot(m, e1), inv_a);
-    return nondeg && u >= 0.f && v >= 0.f && u + v <= 1.f && t < tmax &&
-           t > 0.f;
+    V3 n;
+    return triangle_t(tmax, o, d, ta, tb, tc, t, n);
 }
 
 __device__ __forceinline__ V3 ray3(const float* p, long long n, long long i) {

@@ -50,7 +50,6 @@ constexpr float kTwoPi = (float)6.283185307179586;
 constexpr float kInvPi = (float)(1.0 / 3.141592653589793);
 constexpr float kUniformF = (float)(1.0 / 16777216.0);   // rng._UNIFORM_F
 constexpr float kAcneEps = 0.001f;                        // shapes.ACNE_EPS
-constexpr float kTriEps = 0.00001f;                       // shapes.TRI_EPS
 constexpr float kOcclusionEps = 0.01f;                    // direct.py
 constexpr float kF32Highest = 3.4028234663852886e38f;     // shapes.F32_HIGHEST
 constexpr float kAlphaScale = 1.62142f;
@@ -59,34 +58,6 @@ constexpr float kEpsRoughness = 0.004f;
 constexpr int kPdfImpossible = 0, kPdfDelta = 1, kPdfNonzero = 2;
 constexpr float kKindPoint = 0.f, kKindFrustum = 2.f;
 constexpr int kBfL = 1, kBfB = 2, kBoth = 4, kHit = 8, kMiss = 16;
-
-// ---------------------------------------------------------------------------
-// ops/spectrum.lookup_pairs over six (wavelength, value) knots
-
-__device__ __forceinline__ float lookup_pairs(float v, const float* knots,
-                                              int stride) {
-    float w_below = -1.f, x_below = 0.f, w_above = INFINITY, x_above = 0.f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-        float wk = __ldg(knots + 2 * k * stride);
-        float xk = __ldg(knots + (2 * k + 1) * stride);
-        if (wk > w_below && wk <= v) {
-            w_below = wk;
-            x_below = xk;
-        }
-        if (wk < w_above && wk > v) {
-            w_above = wk;
-            x_above = xk;
-        }
-    }
-    bool has_below = w_below >= 0.f, has_above = isfinite(w_above);
-    float t = (v - w_below) / (w_above - w_below);
-    float interp = x_below + mul(t, x_above - x_below);
-    return has_below && has_above ? interp
-           : has_below            ? x_below
-           : has_above            ? x_above
-                                  : 0.f;
-}
 
 // ---------------------------------------------------------------------------
 // ops/shapes.py
@@ -100,18 +71,9 @@ __device__ __forceinline__ void mkray(V3 pos, V3 normal, V3 wi, V3& o, V3& d) {
 // hit_triangle_v's ok and pos
 __device__ __forceinline__ bool hit_triangle(float tmax, V3 o, V3 d, V3 a,
                                              V3 b, V3 c, V3& pos) {
-    V3 e1 = b - a, e2 = c - a;
-    V3 n = cross(e1, e2);
-    float av = -dot(n, d);
-    bool nondeg = fabsf(av) >= kTriEps;
-    float inv_a = (nondeg ? 1.f : 0.f) / (nondeg ? av : 1.f);
-    V3 s = o - a;
-    V3 m = cross(s, d);
-    float t = mul(dot(n, s), inv_a);
-    float u = mul(dot(m, e2), inv_a);
-    float v = mul(-dot(m, e1), inv_a);
-    bool ok = nondeg && u >= 0.f && v >= 0.f && u + v <= 1.f && t < tmax &&
-              t > 0.f;
+    float t;
+    V3 n;
+    bool ok = triangle_t(tmax, o, d, a, b, c, t, n);
     pos = o + scale(ok ? t : 0.f, d);
     return ok;
 }
@@ -331,24 +293,6 @@ __device__ __forceinline__ bool shadow_ray(V3 pos, V3 normal, V3 lightp,
 
 // ---------------------------------------------------------------------------
 // The kernels' operands
-
-struct Lanes {  // a (N,) operand: lane i at p[i * s]
-    const void* p;
-    long long s;
-};
-struct Lanes3 {  // a (3, N) operand: row r, lane i at p[r * rs + i * s]
-    const float* p;
-    long long rs, s;
-};
-
-template <typename T>
-__device__ __forceinline__ T at(Lanes x, int i) {
-    return __ldg(static_cast<const T*>(x.p) + (long long)i * x.s);
-}
-__device__ __forceinline__ V3 at3(Lanes3 x, int i) {
-    const float* p = x.p + (long long)i * x.s;
-    return {__ldg(p), __ldg(p + x.rs), __ldg(p + 2 * x.rs)};
-}
 
 struct PrepareArgs {
     int n;

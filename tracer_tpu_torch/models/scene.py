@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tracer_tpu_torch.engine import interaction
 from tracer_tpu_torch.models import lights as lights_mod
 from tracer_tpu_torch.ops import bvh as bvh_mod
 from tracer_tpu_torch.ops import intersect, materials
@@ -168,17 +169,24 @@ class Interaction(NamedTuple):
 
 
 def closest_interaction(scene: Scene, tmax, origin, d, wavelen) -> Interaction:
-    """closest_hit + material row fetch at the hero wavelength; the
-    material id rides the dense accel's aux column, and comes from
-    tri_mat by the LBVH's triangle index."""
-    if isinstance(scene.accel, intersect.DenseTris):
-        ok, t, _, pos, normal, aux = intersect.closest_hit(
-            scene.accel, tmax, origin, d)
-        lane_mat = aux.long()
+    """closest_hit + material row fetch at the hero wavelength: the
+    query, then the op tracer_tpu_torch::interaction (engine/interaction.py,
+    K16 on the card) on its answer. The material id rides the dense
+    accel's aux column, and comes from tri_mat by the LBVH's triangle
+    index."""
+    acc = scene.accel
+    if isinstance(acc, intersect.DenseTris):
+        out = intersect.closest_hit(
+            acc, tmax, origin, d, then=lambda best_t, best_i, tm:
+            interaction.dense(acc, scene.mat_rows, tm, origin, d, wavelen,
+                              best_t, best_i))
     else:
-        ok, t, tri_idx, pos, normal = closest_hit(scene, tmax, origin, d)
-        lane_mat = scene.tri_mat[torch.where(ok, tri_idx, 0).long()].long()
-    rows_t = scene.mat_rows[lane_mat].T   # (28, N)
-    mat, emission = materials.at_wavelength_rows(rows_t, wavelen)
-    return Interaction(ok=ok, t=t, pos=pos, normal=normal, mat=mat,
+        out = bvh_mod.closest_hit(
+            acc, tmax, origin, d, then=lambda leaf, tm: interaction.lbvh(
+                acc, scene.tri_mat, scene.mat_rows, tm, origin, d, wavelen,
+                leaf))
+    ok, t, pos, normal, rows = out
+    *mat, emission = rows.unbind(0)
+    return Interaction(ok=ok, t=t, pos=pos, normal=normal,
+                       mat=materials.MaterialLanes(*mat),
                        emission_at_wl=emission)

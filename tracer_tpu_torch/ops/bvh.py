@@ -293,13 +293,17 @@ def op_args(bvh: LBVH, tmax, origin, d) -> tuple:
             d.expand(3, n).contiguous())
 
 
-def closest_hit(bvh: LBVH, tmax, origin, d):
+def closest_hit(bvh: LBVH, tmax, origin, d, *, then=None):
     """Closest hit of V3 rays (3, N). Returns (ok, t, tri_idx (input
     index, -1 on a miss), pos (3, N), normal (3, N)); the winning leaf is
-    intersected once more at the caller's tmax."""
+    intersected once more at the caller's tmax. Or, given then,
+    then(leaf, tmax) of the walk's leaf (N,) int64, -1 on a miss, in
+    place of that re-test (models/scene.closest_interaction)."""
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=d.device)
     leaf, _ = torch.ops.tracer_tpu_torch.lbvh_closest_hit(
         *op_args(bvh, tmax, origin, d))
+    if then is not None:
+        return then(leaf, tmax)
     ok0 = leaf >= 0
     li = torch.where(ok0, leaf, 0)
     tri = bvh.tris[li]

@@ -1,9 +1,9 @@
 """The one seam between the port and its hand kernels: every CUDA source
 under csrc/ (intersect.cu: K1-K4 and their exact yardstick, recip.cu: K5,
-shade.cu: K6-K7, prep.cu: K8-K12, refill.cu: K13, bvh.cu: K14-K15) built
-by one nvcc call
-at first use, into build/tracer_tpu_torch/ keyed on a hash of the flags
-and sources (and of the headers they include), loaded with ctypes,
+shade.cu: K6-K7, prep.cu: K8-K12, refill.cu: K13, bvh.cu: K14-K15,
+interaction.cu: K16) built by one nvcc call at first use, into
+build/tracer_tpu_torch/ keyed on a hash of the flags and sources (and of
+the headers they include), loaded with ctypes,
 launched, checked and counted. Nothing is built when a module is
 imported.
 
@@ -37,12 +37,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Every kernel, by the name it is counted under: K1-K4 and their yardstick
 # (intersect.cu; K2 and K4 launch through closest_hit_launch and
 # any_hit_launch), K8-K12 (prep.cu), K6/K7 (shade.cu), K13 (refill.cu),
-# K14/K15 (bvh.cu) and K5 (recip.cu).
+# K14/K15 (bvh.cu), K16 (interaction.cu) and K5 (recip.cu).
 KERNELS = ("closest_hit", "closest_hit_streamed", "any_hit",
            "any_hit_streamed", "closest_hit_exact", "lane_key", "lane_deal",
            "superchunk", "schedule", "heavy_first", "shade_prepare",
            "shade_finish", "refill", "lbvh_closest", "lbvh_any",
-           "approx_reciprocal")
+           "interaction", "approx_reciprocal")
 # Launches of each kernel and calls of each one's plain version where a
 # wrapper dispatches; launch() and plain() add to them and nothing else.
 launches = dict.fromkeys(KERNELS, 0)

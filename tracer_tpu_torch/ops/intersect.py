@@ -175,10 +175,10 @@ def ray_features_t(origin, d):
     return torch.cat([d, origin, la.v3_cross(origin, d), ones], dim=0)
 
 
-def _reintersect(dense: DenseTris, best_i, origin, d, tmax):
-    """Exact t, position and normal of the winning triangle, and its aux
-    scalar (returned last)."""
-    rows_t = dense.tris[best_i.long()].T  # (10, N)
+def _reintersect(tris, best_i, origin, d, tmax):
+    """Exact t, position and normal of the winning triangle best_i of the
+    rows tris (DenseTris.tris), and its aux scalar (returned last)."""
+    rows_t = tris[best_i.long()].T  # (10, N)
     ok, t, pos, nrm = shapes.hit_triangle_v(tmax, origin, d, rows_t[0:3],
                                             rows_t[3:6], rows_t[6:9])
     return ok, t, pos, nrm, rows_t[9]
@@ -461,19 +461,26 @@ def any_hit_phi(dense: DenseTris, tmax, phi, *, perm: str = "auto",
     return hit
 
 
-def closest_hit(dense: DenseTris, tmax, origin, d, *, perm: str = "auto"):
+def closest_hit(dense: DenseTris, tmax, origin, d, *, perm: str = "auto",
+                then=None):
     """Closest-hit query of V3 rays (3,N) against all triangles; perm as
     for closest_hit_phi.
 
     Returns (ok (N,), t (N,), tri_idx (N,) int32 in storage order, -1 on
-    a miss, pos (3,N), normal (3,N), aux (N,) f32, 0 on a miss)."""
+    a miss, pos (3,N), normal (3,N), aux (N,) f32, 0 on a miss). Or,
+    given then, then(best_t, best_i, tmax) of the query's answer in place
+    of the re-test below (models/scene.closest_interaction: the op
+    tracer_tpu_torch::interaction, whose [1] is this t; portbench's traced
+    call reads the rays and t of this function's calls)."""
     phi = ray_features_t(origin, d)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=phi.device)
     best_t, best_i = closest_hit_phi(dense, tmax, phi, perm=perm)
+    if then is not None:
+        return then(best_t, best_i, tmax)
     ok = torch.isfinite(best_t)
     best_i = torch.where(ok, best_i, 0)
     ok2, t, pos, normal, aux = _reintersect(
-        dense, best_i, origin, d, tmax * (1.0 + REINTERSECT_SLACK))
+        dense.tris, best_i, origin, d, tmax * (1.0 + REINTERSECT_SLACK))
     ok = ok & ok2
     return (ok, torch.where(ok, t, float("inf")),
             torch.where(ok, best_i, -1), pos, normal,

@@ -13,7 +13,9 @@ sorted query's
 key and deal as tracer_tpu_torch::lane_key and lane_deal around aten's
 stable sort (ops/intersect.py), the shading around the shadow query as
 tracer_tpu_torch::shade_prepare and shade_finish (engine/shade.py), the
-pool's refill as tracer_tpu_torch::refill (engine/refill.py). A
+pool's refill as tracer_tpu_torch::refill (engine/refill.py), the closest
+hit's interaction as tracer_tpu_torch::interaction
+(engine/interaction.py). A
 fresh process loads the artifact and steps a
 state with no Python of the renderer: engine/integrator.py,
 engine/api.py and the scene build are not
@@ -48,6 +50,7 @@ from dataclasses import replace
 
 import torch
 
+from tracer_tpu_torch.engine import interaction  # noqa: F401 (the op)
 from tracer_tpu_torch.engine import refill  # noqa: F401 (the op)
 from tracer_tpu_torch.engine import shade  # noqa: F401 (the ops)
 from tracer_tpu_torch.engine.state import EngineState
@@ -186,7 +189,7 @@ def load(blob: bytes):
     runs its aten graph and the registered ops, and never retraces the
     renderer's Python. It imports the op registrations (ops/intersect.py,
     ops/intersect_kernel.py, ops/bvh.py, engine/shade.py,
-    engine/refill.py) and the state's structure
+    engine/refill.py, engine/interaction.py) and the state's structure
     (engine/state.py, utils/checkpoint.py), not engine/integrator.py or
     engine/api.py. A step artifact gives a LoadedStep."""
     extra = {_META: ""}
